@@ -33,6 +33,7 @@ import faulthandler
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -43,6 +44,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli import serve
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
@@ -61,7 +63,13 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
 
 WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12     # H100 SXM, outside the tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 lanes x boost
+OPS_PER_WORD = 4 * (8 + 12)  # open_close.cu: passes x (shifts + AND/OR)
+FLUSH_BYTES = 256 << 20    # cold timings zero this much: 5x the L2
+SLEEP_CYCLES = 100_000     # warm timings: about 50 us at 1.98 GHz
+EARLIER_MS = 0.383         # open_close.cu's first design, 35x640x368
+EDGE_W = (1, 31, 32, 33, 63, 64, 65, 368, 369)
+DENSITIES = (0.05, 0.5, 0.95)
 VOLUME = (35, 640, 368)   # fastMRI knee single-coil slices x k-space H x W
 SERVE_SLICES = 8
 MODEL_BATCH = (16, 1, 320, 320)
@@ -74,34 +82,78 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events, after a
-    warm-up."""
-    for _ in range(5):
+def cuda_ms(fn, cold: bool, iters: int = 50) -> float:
+    """Median milliseconds of ``fn`` on the card, by CUDA events, with the
+    host out of the window. Before each start event the card is kept busy
+    while the host enqueues the event, ``fn`` and the end event: ``cold``
+    zeroes a 256 MB buffer, which also evicts the 50 MB L2; warm sleeps
+    about 50 us on the card (``torch.cuda._sleep``) and flushes nothing.
+    One synchronize after all ``iters`` runs, none inside."""
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
+    for _ in range(3):
         fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    for start, end in events:
+        if cold:
+            flush.zero_()
+        else:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Median microseconds the host spends in one call of ``fn`` (the
+    enqueue, not the card's work)."""
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def open_close_bound_ms(shape) -> tuple:
-    """Least time for disk(2) open+close of a uint8 stack on an H100 and
-    what sets it: read and write each pixel once (bytes), against 4 passes
-    x 12 two-input boolean operations a pixel done 32 pixels to a 32-bit
-    operation (operations)."""
-    pixels = int(np.prod(shape))
-    bytes_ms = 2 * pixels / HBM_BYTES_PER_S * 1e3
-    ops_ms = 48 * pixels / 32 / FP32_OPS_PER_S * 1e3
+    """Least time for disk(2) open+close of a uint8 (S, H, W) stack on an
+    H100 and what sets it: read and write each pixel once (bytes), against
+    the bit-packed pass's INT32 operations, 8 funnel shifts and 12 AND/OR
+    per 32-pixel word and pass, four passes (operations), at the INT32
+    rate: 64 INT32 lanes an SM, half its FP32 lanes, with no FMA to count
+    twice."""
+    s, h, w = shape
+    bytes_ms = 2 * s * h * w / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_WORD * s * h * -(-w // 32) / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def conv_open_close(dev: torch.device, dtype: torch.dtype):
+    """The JAX package's default formulation of disk(2) open+close
+    (``ops/maskops.py``), four ``F.conv2d`` calls with the 13-tap disk: an
+    erosion pads with 1 and keeps sums >= 12.5, a dilation pads with 0 and
+    keeps sums > 0.5. Sums of at most 13 are exact in fp16 and f32. A
+    yardstick for the kernel; the port never calls it."""
+    se = torch.from_numpy(morphology.disk(2)).to(dev, dtype)[None, None]
+
+    def erode(m):
+        return (F.conv2d(F.pad(m, (2, 2, 2, 2), value=1.0), se)
+                >= 12.5).to(dtype)
+
+    def dilate(m):
+        return (F.conv2d(m, se, padding=2) > 0.5).to(dtype)
+
+    def fn(x):
+        m = x.unsqueeze(1).to(dtype)
+        return erode(dilate(dilate(erode(m)))).squeeze(1).to(torch.uint8)
+    return fn
 
 
 def _precision_flags() -> dict:
@@ -141,50 +193,135 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     fresh = not _build.library_path("open_close").exists()
     morphology.load_library()
+    report = _build.ptxas_report("open_close")
+    kernels = [{"registers": int(r), "spill_stores_bytes": int(st),
+                "spill_loads_bytes": int(ld)}
+               for st, ld, r in zip(
+                   re.findall(r"(\d+) bytes spill stores", report),
+                   re.findall(r"(\d+) bytes spill loads", report),
+                   re.findall(r"Used (\d+) registers", report))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "source": "mri_acl_imagesegmentation_adsp_tpu_torch/csrc/"
-                    "open_close.cu", "nvcc": fresh})
+                    "open_close.cu", "nvcc": fresh,
+          "ptxas": kernels, "ptxas_lines": [
+              ln.strip() for ln in report.splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling" in ln]})
+
+
+def edge_cases(rng) -> list:
+    """``(name, mask, band_rows)`` for the kernel's word and band edges:
+    every width of ``EDGE_W`` at heights 1, 2 and 640 with the wrapper's
+    band choice and at R-1, R, R+1, R+9 for each band height R it can
+    pick (forced), each a stack of one slice per density of ``DENSITIES``;
+    (S, 640, 368) stacks for S = 1, 8, 35; and the three border cases.
+    tests/test_torch_cuda.py checks the same list."""
+    heights = [(1, None), (2, None), (640, None)] + [
+        (r + d, r) for r in morphology.BAND_ROWS for d in (-1, 0, 1, 9)]
+    cases = []
+    for w in EDGE_W:
+        for h, rows in heights:
+            m = np.stack([rng.random((h, w)) < d for d in DENSITIES])
+            cases.append((f"w{w}_h{h}_r{rows or 'auto'}", m, rows))
+    for s in (1, 8, 35):
+        m = np.stack([rng.random(VOLUME[1:]) < DENSITIES[i % 3]
+                      for i in range(s)])
+        cases.append((f"s{s}_640x368", m, None))
+    single = np.zeros((2, 33, 47), bool)
+    single[:, 16, 20] = True
+    cases += [("ones", np.ones((2, 33, 47), bool), None),
+              ("ones_volume", np.ones(VOLUME, bool), None),
+              ("zeros", np.zeros((2, 33, 47), bool), None),
+              ("single_pixel", single, None)]
+    return cases
+
+
+def check_cases(dev: torch.device, cases: list, staged: bool) -> None:
+    for name, m, rows in cases:
+        x = torch.from_numpy(m.astype(np.uint8)).to(dev)
+        got = morphology.open_close(x, band_rows=rows, staged=staged)
+        torch.cuda.synchronize()
+        want = morphology.open_close_reference(x)
+        n_diff = int((got != want).sum())
+        if n_diff:
+            raise AssertionError(f"open_close {name} (staged {staged}): "
+                                 f"{n_diff} pixels differ from the plain "
+                                 "version")
+        if name.startswith("ones") and not bool(got.all()):
+            raise AssertionError("open_close of all ones must stay all ones")
+        if name in ("zeros", "single_pixel") and bool(got.any()):
+            raise AssertionError(f"open_close {name} must come out empty")
+
+
+def time_shape(dev: torch.device, shape, rng) -> dict:
+    """The kernel, its plain version and the convolution yardstick at one
+    main-path shape (a random mask of density 0.5), beside the bound."""
+    x = torch.from_numpy((rng.random(shape) < 0.5).astype(np.uint8)).to(dev)
+    want = morphology.open_close_reference(x)
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    # the yardstick gets cuDNN's fastest algorithm, not a deterministic one
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = (
+        True, False)
+    conv = {}
+    try:
+        for dtype in (torch.float16, torch.float32):
+            fn = conv_open_close(dev, dtype)
+            if not torch.equal(fn(x), want):
+                raise AssertionError(f"conv yardstick ({dtype}) differs "
+                                     "from the plain version")
+            conv[str(dtype).removeprefix("torch.")] = cuda_ms(
+                lambda: fn(x), cold=True)
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+    bound_ms, bound_by = open_close_bound_ms(shape)
+    kernel = lambda: morphology.open_close(x)  # noqa: E731
+    cold_ms = cuda_ms(kernel, cold=True)
+    out = {"shape": list(shape),
+           "band_rows": morphology.band_plan(shape[0], shape[1])[0],
+           "cold_ms": cold_ms, "warm_ms": cuda_ms(kernel, cold=False),
+           "host_us": host_us(kernel),
+           "plain_ms": cuda_ms(lambda: morphology.open_close_reference(x),
+                               cold=True, iters=20),
+           "conv_ms": min(conv.values()),
+           "conv_dtype": min(conv, key=conv.get), "conv_ms_by_dtype": conv,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / cold_ms}
+    if not cold_ms < out["conv_ms"]:
+        print(f"open_close at {shape} is not faster than the convolution "
+              f"yardstick: {cold_ms} vs {out['conv_ms']} ms", flush=True)
+    return out
 
 
 def phase_kernel(dev: torch.device) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    cases = [(f"random_{'x'.join(map(str, s))}", rng.random(s) > 0.55)
-             for s in [(4, 64, 64), (3, 96, 80), (8, 320, 320), VOLUME]]
-    single = np.zeros((2, 33, 47), bool)
-    single[:, 16, 20] = True
-    cases += [("ones", np.ones((2, 33, 47), bool)),
-              ("zeros", np.zeros((2, 33, 47), bool)),
-              ("single_pixel", single)]
-    for name, m in cases:
-        x = torch.from_numpy(m.astype(np.uint8)).to(dev)
-        got = morphology.open_close(x)
-        torch.cuda.synchronize()
-        want = morphology.open_close_reference(x)
-        n_diff = int((got != want).sum())
-        if n_diff:
-            raise AssertionError(f"open_close {name}: {n_diff} pixels "
-                                 "differ from the plain version")
-        if name == "ones" and not bool(got.all()):
-            raise AssertionError("open_close of all ones must stay all ones")
-        if name in ("zeros", "single_pixel") and bool(got.any()):
-            raise AssertionError(f"open_close {name} must come out empty")
-    x = torch.from_numpy(cases[3][1].astype(np.uint8)).to(dev)
-    ms = cuda_ms(lambda: morphology.open_close(x))
-    plain_ms = cuda_ms(lambda: morphology.open_close_reference(x), iters=20)
-    bound_ms, bound_by = open_close_bound_ms(VOLUME)
+    cases = edge_cases(rng)
+    for staged in (True, False):
+        check_cases(dev, cases, staged)
+    x = torch.from_numpy((rng.random(VOLUME) < 0.5).astype(np.uint8)).to(dev)
+    bands = {str(r): cuda_ms(lambda: morphology.open_close(x, band_rows=r),
+                             cold=True) for r in (8, 16, 32, 64, 128)}
+    variants = {"direct": cuda_ms(lambda: morphology.open_close(
+        x, staged=False), cold=True), "staged": cuda_ms(
+        lambda: morphology.open_close(x, staged=True), cold=True)}
+    volume = time_shape(dev, VOLUME, rng)
+    served = time_shape(dev, (SERVE_SLICES,) + VOLUME[1:], rng)
     row = {"name": "open_close", "route": "cuda",
            "source": "mri_acl_imagesegmentation_adsp_tpu_torch/csrc/"
                      "open_close.cu",
            "replaces": "mri_acl_imagesegmentation_adsp_tpu/ops/pallas/"
                        "morphology.py:93",
-           "launches": None, "max_abs_err": 0.0, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None}
+           "launches": None, "max_abs_err": 0.0, "ms": volume["cold_ms"],
+           "plain_ms": volume["plain_ms"], "bound_ms": volume["bound_ms"],
+           "bound_by": volume["bound_by"], "library_ms": None,
+           "shape": volume["shape"], "warm_ms": volume["warm_ms"],
+           "host_us": volume["host_us"], "conv_ms": volume["conv_ms"],
+           "earlier_ms": EARLIER_MS, "served_shape": served}
     emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
-          "cases": [c[0] for c in cases], "bit_equal": True,
-          "shape": list(VOLUME), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
+          "cases": len(cases), "bit_equal": True,
+          "cold_ms_by_band_rows": bands, "cold_ms_by_variant": variants,
+          "volume": volume, "served": served})
     return row
 
 
@@ -243,7 +380,7 @@ def phase_model(dev: torch.device) -> torch.nn.Module:
         card = copy.deepcopy(model).to(dev)
         xd = x.to(dev)
         got = card(xd).cpu()
-        ms = cuda_ms(lambda: card(xd), iters=10)
+        ms = cuda_ms(lambda: card(xd), cold=False, iters=10)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:

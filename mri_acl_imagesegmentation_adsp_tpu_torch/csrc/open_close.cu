@@ -6,121 +6,294 @@
 // _dilate and _shift_with_fill). It computes what that kernel computes,
 // closing(opening(m, disk(2)), disk(2)), i.e. erode -> dilate -> dilate ->
 // erode over the 13 taps of disk(2), but for a (S, H, W) stack at once.
+// Input: contiguous (S, H, W) uint8, nonzero meaning 1. Output: uint8 0/1.
 //
-// Border rule: a tap that falls outside the IMAGE (not outside the tile)
-// reads 1 in an erosion pass and 0 in a dilation pass, at every one of the
-// four passes, as skimage does. Padding the input once would be wrong near
-// the image edge, so each pass tests the tap's image coordinates itself.
+// Border rule: a tap that falls outside the IMAGE reads 1 in an erosion
+// pass and 0 in a dilation pass, at every one of the four passes, as
+// skimage does.
 //
-// Design: one block per 32x32 output tile, grid (ceil(W/32), ceil(H/32), S).
-// The block loads the tile plus an 8-pixel halo (four radius-2 passes) into
-// a 48x48 u8 shared buffer and runs the four passes there, ping-ponging
-// between two buffers; each pass computes a region 2 pixels narrower on
-// every side than the last, so the fourth pass yields exactly the tile.
+// Bit order: pixel x of a row is bit (x mod 32) of word x/32 of the row, so
+// a row packs into nw = ceil(W/32) words. For word j of a row with
+// neighbours l (word j-1) and r (word j+1), __funnelshift_r(c, r, d) holds
+// pixel x+d at the bit of pixel x, and __funnelshift_l(l, c, d) pixel x-d.
+//
+// Design: one block of 256 threads per band of R output rows across the
+// full width of one slice; the wrapper (ops/kernels/morphology.py,
+// band_plan) picks R from S and H so that the grid S*ceil(H/R) fills the
+// 132 SMs. The block loads the band's R+16 rows (an 8-row halo above and
+// below for four radius-2 passes; no horizontal halo, no carry between
+// blocks) and packs them into words with __ballot_sync: 32 lanes test 32
+// consecutive bytes of a row and the ballot is the row's word. disk(2) is
+// then, per word, row y at horizontal radius 2, rows y+-1 at radius 1 and
+// rows y+-2 at radius 0, combined by AND (erode) or OR (dilate): 8 funnel
+// shifts and 12 logic operations for 32 pixels. Each pass computes 2 rows
+// fewer at each end of the band, so the fourth yields exactly the R output
+// rows; two packed buffers in shared memory ping-pong between passes. A
+// thread computes 4 rows of one word column, so it loads 20 words from
+// shared memory for 4 outputs.
+//
+// The border rule without per-tap tests: pixels outside the image load as 1
+// (the first pass erodes). Each pass writes, for the next pass, its fill to
+// the band's rows outside [0, H) and to the bits x >= W of each row's last
+// word (one mask), and reads its own fill for the virtual words j = -1 and
+// j = nw. So the fill is re-applied at every pass.
+//
+// Two ways to bring the band in and out (kStaged):
+//  - direct: each warp's byte loads go straight from device memory to the
+//    ballot (8 in flight a warp), and each lane stores one output byte;
+//  - staged: the band's rows, contiguous in memory, are copied into shared
+//    memory with 16-byte loads (aligned to the address, with byte loads at
+//    the two ends, so any W works), packed from there, and the output rows
+//    are unpacked into shared memory and stored with 16-byte stores.
 //
 // What bounds it on an H100: bytes. The function must read S*H*W u8 and
-// write S*H*W u8, 2*S*H*W bytes: 16.5 MB for a 35x640x368 volume, about
-// 5 us at 3.35 TB/s. Its logic is 48 boolean operations a pixel, which a
-// bit-packed formulation does 32 pixels to a 32-bit operation, far below
-// the memory time; at that bound a launch's own few us of overhead would
-// cost as much as the work. The halo re-reads (48x48 loaded for 32x32
-// written) come from L2. This simple design does not reach the bound: its
-// per-tap image-bounds tests and byte-wide shared-memory passes take
-// 0.41 ms a volume on an H100 SXM at 700 W (chip_smoke.py, PERF.md).
+// write S*H*W u8: 16.5 MB for a 35x640x368 volume, 4.92 us at 3.35 TB/s.
+// Its logic, 80 INT32 operations a word over four passes, is 1.29 us at
+// the card's INT32 rate. Measured times: PERF.md, section 6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kHalo = 8;                  // 4 passes x radius 2
-constexpr int kRegion = kTile + 2 * kHalo;  // 48
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHalo = 8;           // 4 passes x radius 2
+constexpr int kRowsPerThread = 4;  // rows of one word column per thread
+constexpr int kLoadsInFlight = 8;  // per warp, direct loads
 
-// One radius-2 disk pass over buffer rows/cols [lo, hi) of the region.
-// (oy, ox) are the image coordinates of region cell (0, 0).
+// Rows of one packed buffer: the band, its halo, and the rows a thread's
+// last 4-row group reads past the pass's end (their results are dropped).
+__host__ __device__ inline int packed_rows(int band_rows) {
+  return band_rows + 2 * kHalo + kRowsPerThread - 1;
+}
+
+// Bytes of the raw band buffer of the staged variant: the band's rows and
+// up to 15 bytes to align it to the device address.
+__host__ __device__ inline int raw_bytes(int band_rows, int w) {
+  return ((band_rows + 2 * kHalo) * w + 16 + 15) / 16 * 16;
+}
+
 template <bool kErode>
-__device__ __forceinline__ void disk_pass(uint8_t (*src)[kRegion],
-                                          uint8_t (*dst)[kRegion], int lo,
-                                          int hi, int oy, int ox, int H,
-                                          int W) {
-  const uint8_t fill = kErode ? 1 : 0;
-  for (int y = lo + threadIdx.y; y < hi; y += kThreadsY) {
-    for (int x = lo + threadIdx.x; x < hi; x += kThreadsX) {
-      uint8_t acc = kErode ? 1 : 0;
+__device__ __forceinline__ uint32_t combine(uint32_t a, uint32_t b) {
+  return kErode ? (a & b) : (a | b);
+}
+
+// One disk(2) pass over packed buffer rows [lo, hi). band_y0 is the image
+// row of buffer row 0; last_valid masks the real pixels of a row's last
+// word.
+template <bool kErode, bool kNextErode>
+__device__ __forceinline__ void disk_pass(const uint32_t* __restrict__ src,
+                                          uint32_t* __restrict__ dst, int lo,
+                                          int hi, int band_y0, int h, int nw,
+                                          uint32_t last_valid) {
+  constexpr uint32_t kFill = kErode ? ~0u : 0u;
+  constexpr uint32_t kNextFill = kNextErode ? ~0u : 0u;
+  constexpr int kV = kRowsPerThread;
+  const int n_items = (hi - lo + kV - 1) / kV * nw;
+  for (int item = threadIdx.x; item < n_items; item += kThreads) {
+    const int j = item % nw;
+    const int y = lo + item / nw * kV;
+    uint32_t c[kV + 4], h1[kV + 4], h2[kV + 4];
 #pragma unroll
-      for (int dy = -2; dy <= 2; ++dy) {
+    for (int v = 0; v < kV + 4; ++v) {
+      const uint32_t* row = src + (y - 2 + v) * nw;
+      const uint32_t mid = row[j];
+      const uint32_t left = j > 0 ? row[j - 1] : kFill;
+      const uint32_t right = j + 1 < nw ? row[j + 1] : kFill;
+      c[v] = mid;
+      h1[v] = combine<kErode>(
+          mid, combine<kErode>(__funnelshift_r(mid, right, 1),
+                               __funnelshift_l(left, mid, 1)));
+      h2[v] = combine<kErode>(
+          h1[v], combine<kErode>(__funnelshift_r(mid, right, 2),
+                                 __funnelshift_l(left, mid, 2)));
+    }
 #pragma unroll
-        for (int dx = -2; dx <= 2; ++dx) {
-          if (dy * dy + dx * dx > 4) continue;
-          const int gy = oy + y + dy;
-          const int gx = ox + x + dx;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          const uint8_t v = inside ? src[y + dy][x + dx] : fill;
-          acc = static_cast<uint8_t>(kErode ? (acc & v) : (acc | v));
+    for (int v = 0; v < kV; ++v) {
+      const int yy = y + v;
+      if (yy < hi) {
+        uint32_t w = combine<kErode>(
+            h2[v + 2],
+            combine<kErode>(combine<kErode>(h1[v + 1], h1[v + 3]),
+                            combine<kErode>(c[v], c[v + 4])));
+        const int g = band_y0 + yy;
+        if (g < 0 || g >= h) {
+          w = kNextFill;
+        } else if (j == nw - 1) {
+          w = (w & last_valid) | (kNextFill & ~last_valid);
         }
+        dst[yy * nw + j] = w;
       }
-      dst[y][x] = acc;
     }
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-    open_close_kernel(const uint8_t* __restrict__ in,
-                      uint8_t* __restrict__ out, int H, int W) {
-  __shared__ uint8_t buf[2][kRegion][kRegion];
-  const size_t plane = static_cast<size_t>(H) * W;
-  const uint8_t* src = in + blockIdx.z * plane;
-  uint8_t* dst = out + blockIdx.z * plane;
-  const int ty = blockIdx.y * kTile;
-  const int tx = blockIdx.x * kTile;
-  const int oy = ty - kHalo;
-  const int ox = tx - kHalo;
-
-  // Cells outside the image are never read as data (each pass substitutes
-  // its fill there), so their loaded value does not matter.
-  for (int y = threadIdx.y; y < kRegion; y += kThreadsY) {
-    const int gy = oy + y;
-    for (int x = threadIdx.x; x < kRegion; x += kThreadsX) {
-      const int gx = ox + x;
-      uint8_t v = 0;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        v = static_cast<uint8_t>(
-            src[static_cast<size_t>(gy) * W + gx] != 0);
+// Copy bytes [ka, kb) of a band between the device (local byte k at
+// address addr0 + k) and the shared raw buffer (local byte k at raw[shift +
+// k], shift = addr0 mod 16): 16-byte accesses where both sides are
+// aligned, single bytes at the two ends.
+template <bool kToShared>
+__device__ __forceinline__ void copy_band(uint8_t* raw, intptr_t addr0,
+                                          int shift, int ka, int kb) {
+  if (ka >= kb) return;
+  int kv0 = ka + static_cast<int>((16 - ((addr0 + ka) & 15)) & 15);
+  int kv1 = kb - static_cast<int>((addr0 + kb) & 15);
+  if (kv0 > kv1) kv0 = kv1 = kb;
+  for (int k = ka + threadIdx.x; k < kv0; k += kThreads) {
+    uint8_t* dev = reinterpret_cast<uint8_t*>(addr0 + k);
+    if (kToShared) raw[shift + k] = *dev; else *dev = raw[shift + k];
+  }
+  for (int k = kv1 + threadIdx.x; k < kb; k += kThreads) {
+    uint8_t* dev = reinterpret_cast<uint8_t*>(addr0 + k);
+    if (kToShared) raw[shift + k] = *dev; else *dev = raw[shift + k];
+  }
+  constexpr int kUnroll = 4;
+  const int n_vec = (kv1 - kv0) / 16;
+  uint4* sv = reinterpret_cast<uint4*>(raw + shift + kv0);
+  uint4* dv = reinterpret_cast<uint4*>(addr0 + kv0);
+  for (int base = threadIdx.x; base < n_vec; base += kThreads * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * kThreads;
+      if (i < n_vec) v[u] = kToShared ? __ldg(dv + i) : sv[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * kThreads;
+      if (i < n_vec) {
+        if (kToShared) sv[i] = v[u]; else dv[i] = v[u];
       }
-      buf[0][y][x] = v;
+    }
+  }
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    open_close_kernel(const uint8_t* __restrict__ in,
+                      uint8_t* __restrict__ out, int h, int w, int nw,
+                      int band_rows, int n_bands) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* raw = smem;  // staged only; 16-aligned at the start
+  uint32_t* buf_a = reinterpret_cast<uint32_t*>(
+      smem + (kStaged ? raw_bytes(band_rows, w) : 0));
+  uint32_t* buf_b = buf_a + packed_rows(band_rows) * nw;
+
+  const int slice = blockIdx.x / n_bands;
+  const int band = blockIdx.x % n_bands;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const uint8_t* src = in + slice * plane;
+  uint8_t* dst = out + slice * plane;
+  const int y_out = band * band_rows;      // first output row
+  const int band_y0 = y_out - kHalo;       // image row of buffer row 0
+  const int n_out = min(band_rows, h - y_out);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t last_valid = (w % 32) ? (1u << (w % 32)) - 1u : ~0u;
+  const int n_words = (band_rows + 2 * kHalo) * nw;
+
+  // Load and pack the band; pixels outside the image pack as 1.
+  const intptr_t in0 = reinterpret_cast<intptr_t>(src) +
+                       static_cast<intptr_t>(band_y0) * w;
+  const int in_shift = static_cast<int>(in0 & 15);
+  if (kStaged) {
+    const int r0 = max(band_y0, 0) - band_y0;
+    const int r1 = min(band_y0 + band_rows + 2 * kHalo, h) - band_y0;
+    copy_band<true>(raw, in0, in_shift, r0 * w, r1 * w);
+    __syncthreads();
+  }
+  for (int base = warp; base < n_words; base += kWarps * kLoadsInFlight) {
+    uint8_t v[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int t = base + u * kWarps;
+      v[u] = 1;
+      if (t < n_words) {
+        const int r = t / nw;
+        const int x = (t - r * nw) * 32 + lane;
+        const int g = band_y0 + r;
+        if (g >= 0 && g < h && x < w) {
+          v[u] = kStaged ? raw[in_shift + r * w + x]
+                         : src[static_cast<size_t>(g) * w + x];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int t = base + u * kWarps;
+      const uint32_t word = __ballot_sync(~0u, v[u] != 0);
+      if (t < n_words && lane == 0) buf_a[t] = word;
     }
   }
   __syncthreads();
 
-  disk_pass<true>(buf[0], buf[1], 2, kRegion - 2, oy, ox, H, W);   // erode
-  disk_pass<false>(buf[1], buf[0], 4, kRegion - 4, oy, ox, H, W);  // dilate
-  disk_pass<false>(buf[0], buf[1], 6, kRegion - 6, oy, ox, H, W);  // dilate
-  disk_pass<true>(buf[1], buf[0], 8, kRegion - 8, oy, ox, H, W);   // erode
+  const int top = 2 * kHalo + band_rows;
+  disk_pass<true, false>(buf_a, buf_b, 2, top - 2, band_y0, h, nw,
+                         last_valid);  // erode
+  disk_pass<false, false>(buf_b, buf_a, 4, top - 4, band_y0, h, nw,
+                          last_valid);  // dilate
+  disk_pass<false, true>(buf_a, buf_b, 6, top - 6, band_y0, h, nw,
+                         last_valid);  // dilate
+  disk_pass<true, true>(buf_b, buf_a, 8, top - 8, band_y0, h, nw,
+                        last_valid);  // erode
 
-  for (int y = threadIdx.y; y < kTile; y += kThreadsY) {
-    const int gy = ty + y;
-    if (gy >= H) break;
-    for (int x = threadIdx.x; x < kTile; x += kThreadsX) {
-      const int gx = tx + x;
-      if (gx < W) dst[static_cast<size_t>(gy) * W + gx] =
-          buf[0][kHalo + y][kHalo + x];
+  // Unpack output rows [y_out, y_out + n_out): lane i takes bit i.
+  const intptr_t out0 = reinterpret_cast<intptr_t>(dst) +
+                        static_cast<intptr_t>(band_y0) * w;
+  const int out_shift = static_cast<int>(out0 & 15);
+#pragma unroll 4
+  for (int t = warp; t < n_out * nw; t += kWarps) {
+    const int r = t / nw + kHalo;
+    const int x = (t % nw) * 32 + lane;
+    if (x < w) {
+      const uint8_t bit = (buf_a[r * nw + t % nw] >> lane) & 1u;
+      if (kStaged) {
+        raw[out_shift + r * w + x] = bit;
+      } else {
+        dst[static_cast<size_t>(band_y0 + r) * w + x] = bit;
+      }
     }
   }
+  if (kStaged) {
+    __syncthreads();
+    copy_band<false>(raw, out0, out_shift, kHalo * w, (kHalo + n_out) * w);
+  }
+}
+
+template <bool kStaged>
+int launch(const uint8_t* in, uint8_t* out, int s, int h, int w,
+           int band_rows, int n_bands, cudaStream_t stream) {
+  const int nw = (w + 31) / 32;
+  size_t smem = 2 * static_cast<size_t>(packed_rows(band_rows)) * nw * 4;
+  if (kStaged) smem += raw_bytes(band_rows, w);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        open_close_kernel<kStaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  open_close_kernel<kStaged><<<s * n_bands, kThreads, smem, stream>>>(
+      in, out, h, w, nw, band_rows, n_bands);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point bound with ctypes. in/out: contiguous (S, H, W) uint8 on the
-// current device; launches on `stream`; returns cudaGetLastError().
-extern "C" int open_close_u8(const uint8_t* in, uint8_t* out, int S, int H,
-                             int W, cudaStream_t stream) {
-  if (S <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, S);
-  const dim3 block(kThreadsX, kThreadsY);
-  open_close_kernel<<<grid, block, 0, stream>>>(in, out, H, W);
-  return static_cast<int>(cudaGetLastError());
+// current device; bands of band_rows output rows, n_bands = ceil(H /
+// band_rows) of them a slice, one block each; launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int open_close_u8(const uint8_t* in, uint8_t* out, int s, int h,
+                             int w, int band_rows, int n_bands, int staged,
+                             cudaStream_t stream) {
+  if (s <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (band_rows <= 0 || n_bands <= 0 ||
+      static_cast<long long>(n_bands) * band_rows < h ||
+      static_cast<long long>(n_bands - 1) * band_rows >= h) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return staged ? launch<true>(in, out, s, h, w, band_rows, n_bands, stream)
+                : launch<false>(in, out, s, h, w, band_rows, n_bands, stream);
 }

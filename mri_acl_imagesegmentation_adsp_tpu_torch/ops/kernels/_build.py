@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
 
@@ -51,7 +51,9 @@ def build(name: str) -> Path:
 
     Writes to a temporary name and renames, so a concurrent or cut-off build
     never leaves a half-written library under the final name. Prints the
-    build's seconds to standard error, on a line of their own."""
+    build's seconds to standard error, on a line of their own, and keeps
+    what ``ptxas -v`` said (registers, shared memory, spills) beside the
+    library (:func:`ptxas_report`)."""
     out = library_path(name)
     if out.exists():
         return out
@@ -63,10 +65,16 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)
     print(f"built {out.name} in {time.perf_counter() - t0:.2f} s",
           file=sys.stderr, flush=True)
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` printed when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -82,22 +82,44 @@ def open_close_reference(mask: torch.Tensor) -> torch.Tensor:
     return binary_closing(binary_opening(mask, se), se).to(torch.uint8)
 
 
+# Band heights the wrapper picks from, largest first, and the SMs of an H100
+# the grid should fill.
+BAND_ROWS = (64, 32, 16, 8)
+SMS = 132
+
+
+def band_plan(s: int, h: int) -> tuple:
+    """``(band_rows, n_bands)`` for an ``(s, h, W)`` stack: the kernel runs
+    one block per band of ``band_rows`` output rows, rows
+    ``[b * band_rows, min((b + 1) * band_rows, h))`` of band ``b`` for
+    ``b < n_bands``. The tallest band whose grid ``s * n_bands`` fills the
+    card's SMs, else the shortest: a taller band re-reads less halo (16
+    rows a band), a shorter one gives more blocks."""
+    for rows in BAND_ROWS:
+        if s * -(-h // rows) >= SMS:
+            break
+    return rows, -(-h // rows)
+
+
 def load_library() -> ctypes.CDLL:
     """Build and load ``csrc/open_close.cu`` (once per process)."""
     lib = _build.load("open_close")
     fn = lib.open_close_u8
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def open_close(mask: torch.Tensor) -> torch.Tensor:
+def open_close(mask: torch.Tensor, band_rows: int | None = None,
+               staged: bool = True) -> torch.Tensor:
     """disk(2) opening then closing of each slice of a contiguous
-    ``(S, H, W)`` uint8 0/1 tensor; returns a new uint8 tensor.
+    ``(S, H, W)`` uint8 tensor, nonzero meaning 1; returns a new uint8 0/1
+    tensor.
 
     A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes
-    to :func:`open_close_reference`."""
+    to :func:`open_close_reference`. ``band_rows`` overrides
+    :func:`band_plan`'s band height (tests and timings use it)."""
     global LAUNCHES
     if not isinstance(mask, torch.Tensor):
         raise TypeError(f"mask must be a torch.Tensor, got {type(mask)}")
@@ -114,8 +136,13 @@ def open_close(mask: torch.Tensor) -> torch.Tensor:
         return open_close_reference(mask)
     if mask.device.type != "cuda":
         raise ValueError(f"unsupported device {mask.device}")
-    if s > 65535:
-        raise ValueError(f"at most 65535 slices per call, got {s}")
+    rows, n_bands = band_plan(s, h)
+    if band_rows is not None:
+        if band_rows < 1:
+            raise ValueError(f"band_rows must be >= 1, got {band_rows}")
+        rows, n_bands = band_rows, -(-h // band_rows)
+    if s * n_bands >= 2 ** 31:
+        raise ValueError(f"{s} slices of {n_bands} bands exceed the grid")
     out = torch.empty_like(mask)
     if s == 0:
         return out
@@ -123,7 +150,7 @@ def open_close(mask: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream
         rc = lib.open_close_u8(mask.data_ptr(), out.data_ptr(), s, h, w,
-                               stream)
+                               rows, n_bands, int(staged), stream)
     if rc != 0:
         raise RuntimeError(f"open_close_u8 launch failed: CUDA error {rc}")
     LAUNCHES += 1
