@@ -12,14 +12,19 @@ resize and z-score -> ResNet34 U-Net at full width (320x320 input, decoder
 Phases, each printing one JSON line with its seconds:
   0  setup: watchdog, the card's name and power limit, TF32 off for the
      parity phases 2-4;
-  1  build the CUDA kernel with nvcc;
-  2  kernel vs its plain PyTorch version on the card, bit-equal, and their
-     times beside the bound at one volume's shape;
+  1  build the CUDA kernel with nvcc, with what ptxas says of it;
+  2  kernel vs its plain PyTorch version on the card, bit-equal at the
+     kernel's word and band edges, three densities and misaligned starts;
+     at a volume's (35, 640, 368) and a served request's (8, 640, 368)
+     shape its cold and warm time with the host out of the window
+     (``utils/cuda_timing.py``), the host's time a call, the plain
+     version's time, the four-convolution yardstick's, and the bound;
   3  the preprocess chain on a (35, 640, 368, 2) volume, card vs CPU;
   4  the model's logits on a (16, 1, 320, 320) batch, card vs CPU;
   5  the server, started from torch's own precision flags as its command
      line starts it, answering three /v1/segment_kspace requests, each
-     checked against the in-process result and shown to launch the kernel.
+     checked against the in-process result and shown to launch the kernel
+     exactly once.
 Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any mismatch raises and the script exits
 non-zero; without a card it exits non-zero and prints no result, and a
@@ -58,6 +63,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     _build, morphology)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
     save_best)
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
+    cuda_ms, host_us)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs)
 
@@ -65,9 +72,6 @@ WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 lanes x boost
 OPS_PER_WORD = 4 * (8 + 12)  # open_close.cu: passes x (shifts + AND/OR)
-FLUSH_BYTES = 256 << 20    # cold timings zero this much: 5x the L2
-SLEEP_CYCLES = 100_000     # warm timings: about 50 us at 1.98 GHz
-EARLIER_MS = 0.383         # open_close.cu's first design, 35x640x368
 EDGE_W = (1, 31, 32, 33, 63, 64, 65, 368, 369)
 DENSITIES = (0.05, 0.5, 0.95)
 VOLUME = (35, 640, 368)   # fastMRI knee single-coil slices x k-space H x W
@@ -80,45 +84,6 @@ MASK_DIFF_MAX = 1e-3       # card vs CPU body-mask pixels allowed to differ
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(fn, cold: bool, iters: int = 50) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events, with the
-    host out of the window. Before each start event the card is kept busy
-    while the host enqueues the event, ``fn`` and the end event: ``cold``
-    zeroes a 256 MB buffer, which also evicts the 50 MB L2; warm sleeps
-    about 50 us on the card (``torch.cuda._sleep``) and flushes nothing.
-    One synchronize after all ``iters`` runs, none inside."""
-    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-             if cold else None)
-    for _ in range(3):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda.synchronize()
-    for start, end in events:
-        if cold:
-            flush.zero_()
-        else:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
-
-
-def host_us(fn, iters: int = 200) -> float:
-    """Median microseconds the host spends in one call of ``fn`` (the
-    enqueue, not the card's work)."""
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t)
-    torch.cuda.synchronize()
-    return float(np.median(times)) * 1e6
 
 
 def open_close_bound_ms(shape) -> tuple:
@@ -235,26 +200,47 @@ def edge_cases(rng) -> list:
     return cases
 
 
-def check_cases(dev: torch.device, cases: list, staged: bool) -> None:
+def check_cases(dev: torch.device, cases: list) -> int:
+    """Holds the kernel bit-equal to the plain version at every case;
+    returns the largest |kernel - plain| it saw (0 when all are equal)."""
+    max_err = 0
     for name, m, rows in cases:
         x = torch.from_numpy(m.astype(np.uint8)).to(dev)
-        got = morphology.open_close(x, band_rows=rows, staged=staged)
+        got = morphology._open_close(x, rows)
         torch.cuda.synchronize()
         want = morphology.open_close_reference(x)
-        n_diff = int((got != want).sum())
+        err = (got.int() - want.int()).abs()
+        max_err = max(max_err, int(err.max()))
+        n_diff = int((err != 0).sum())
         if n_diff:
-            raise AssertionError(f"open_close {name} (staged {staged}): "
-                                 f"{n_diff} pixels differ from the plain "
-                                 "version")
+            raise AssertionError(f"open_close {name}: {n_diff} pixels "
+                                 "differ from the plain version")
         if name.startswith("ones") and not bool(got.all()):
             raise AssertionError("open_close of all ones must stay all ones")
         if name in ("zeros", "single_pixel") and bool(got.any()):
             raise AssertionError(f"open_close {name} must come out empty")
+    return max_err
+
+
+def check_misaligned(dev: torch.device) -> None:
+    """Tensors that start off a 16-byte boundary take the kernel's
+    bit-stream path; they must give the same bits."""
+    rng = np.random.default_rng(7)
+    m = torch.from_numpy((rng.random((3, 70, 368)) < 0.5).astype(np.uint8))
+    flat = torch.zeros(m.numel() + 16, dtype=torch.uint8, device=dev)
+    for offset in (1, 3, 8):
+        x = flat[offset:offset + m.numel()].view(m.shape)
+        x.copy_(m.to(dev))
+        got = morphology._open_close(x, 16)
+        if not torch.equal(got, morphology.open_close_reference(x)):
+            raise AssertionError(f"open_close at offset {offset} differs "
+                                 "from the plain version")
 
 
 def time_shape(dev: torch.device, shape, rng) -> dict:
     """The kernel, its plain version and the convolution yardstick at one
-    main-path shape (a random mask of density 0.5), beside the bound."""
+    main-path shape (a random mask of density 0.5), beside the bound. Each
+    card time keeps its ``cuda_ms`` sleep and late runs under ``timers``."""
     x = torch.from_numpy((rng.random(shape) < 0.5).astype(np.uint8)).to(dev)
     want = morphology.open_close_reference(x)
     flags = (torch.backends.cudnn.benchmark,
@@ -262,34 +248,38 @@ def time_shape(dev: torch.device, shape, rng) -> dict:
     # the yardstick gets cuDNN's fastest algorithm, not a deterministic one
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = (
         True, False)
-    conv = {}
+    timers = {}
     try:
         for dtype in (torch.float16, torch.float32):
             fn = conv_open_close(dev, dtype)
             if not torch.equal(fn(x), want):
                 raise AssertionError(f"conv yardstick ({dtype}) differs "
                                      "from the plain version")
-            conv[str(dtype).removeprefix("torch.")] = cuda_ms(
+            timers["conv_" + str(dtype).removeprefix("torch.")] = cuda_ms(
                 lambda: fn(x), cold=True)
     finally:
         (torch.backends.cudnn.benchmark,
          torch.backends.cudnn.deterministic) = flags
     bound_ms, bound_by = open_close_bound_ms(shape)
     kernel = lambda: morphology.open_close(x)  # noqa: E731
-    cold_ms = cuda_ms(kernel, cold=True)
+    timers["cold"] = cuda_ms(kernel, cold=True)
+    timers["warm"] = cuda_ms(kernel, cold=False)
+    timers["plain"] = cuda_ms(lambda: morphology.open_close_reference(x),
+                              cold=True, iters=20)
+    conv = {k: t["ms"] for k, t in timers.items() if k.startswith("conv_")}
+    cold_ms = timers["cold"]["ms"]
     out = {"shape": list(shape),
            "band_rows": morphology.band_plan(shape[0], shape[1])[0],
-           "cold_ms": cold_ms, "warm_ms": cuda_ms(kernel, cold=False),
-           "host_us": host_us(kernel),
-           "plain_ms": cuda_ms(lambda: morphology.open_close_reference(x),
-                               cold=True, iters=20),
+           "cold_ms": cold_ms, "warm_ms": timers["warm"]["ms"],
+           "host_us": host_us(kernel), "plain_ms": timers["plain"]["ms"],
            "conv_ms": min(conv.values()),
-           "conv_dtype": min(conv, key=conv.get), "conv_ms_by_dtype": conv,
+           "conv_dtype": min(conv, key=conv.get).removeprefix("conv_"),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_share": bound_ms / cold_ms}
+           "bound_share": bound_ms / cold_ms, "timers": timers}
     if not cold_ms < out["conv_ms"]:
-        print(f"open_close at {shape} is not faster than the convolution "
-              f"yardstick: {cold_ms} vs {out['conv_ms']} ms", flush=True)
+        raise AssertionError(f"open_close at {shape} is not faster than the "
+                             f"convolution yardstick: {cold_ms} vs "
+                             f"{out['conv_ms']} ms")
     return out
 
 
@@ -297,14 +287,8 @@ def phase_kernel(dev: torch.device) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     cases = edge_cases(rng)
-    for staged in (True, False):
-        check_cases(dev, cases, staged)
-    x = torch.from_numpy((rng.random(VOLUME) < 0.5).astype(np.uint8)).to(dev)
-    bands = {str(r): cuda_ms(lambda: morphology.open_close(x, band_rows=r),
-                             cold=True) for r in (8, 16, 32, 64, 128)}
-    variants = {"direct": cuda_ms(lambda: morphology.open_close(
-        x, staged=False), cold=True), "staged": cuda_ms(
-        lambda: morphology.open_close(x, staged=True), cold=True)}
+    max_err = check_cases(dev, cases)
+    check_misaligned(dev)
     volume = time_shape(dev, VOLUME, rng)
     served = time_shape(dev, (SERVE_SLICES,) + VOLUME[1:], rng)
     row = {"name": "open_close", "route": "cuda",
@@ -312,15 +296,18 @@ def phase_kernel(dev: torch.device) -> dict:
                      "open_close.cu",
            "replaces": "mri_acl_imagesegmentation_adsp_tpu/ops/pallas/"
                        "morphology.py:93",
-           "launches": None, "max_abs_err": 0.0, "ms": volume["cold_ms"],
+           "launches": None, "max_abs_err": float(max_err),
+           "ms": volume["cold_ms"],
            "plain_ms": volume["plain_ms"], "bound_ms": volume["bound_ms"],
            "bound_by": volume["bound_by"], "library_ms": None,
            "shape": volume["shape"], "warm_ms": volume["warm_ms"],
            "host_us": volume["host_us"], "conv_ms": volume["conv_ms"],
-           "earlier_ms": EARLIER_MS, "served_shape": served}
+           "served_shape": {
+               k: served[k] for k in ("shape", "cold_ms", "warm_ms",
+                                      "host_us", "plain_ms", "conv_ms",
+                                      "bound_ms", "bound_by")}}
     emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
-          "cases": len(cases), "bit_equal": True,
-          "cold_ms_by_band_rows": bands, "cold_ms_by_variant": variants,
+          "cases": len(cases), "bit_equal": True, "max_abs_err": max_err,
           "volume": volume, "served": served})
     return row
 
@@ -380,7 +367,7 @@ def phase_model(dev: torch.device) -> torch.nn.Module:
         card = copy.deepcopy(model).to(dev)
         xd = x.to(dev)
         got = card(xd).cpu()
-        ms = cuda_ms(lambda: card(xd), cold=False, iters=10)
+        ms = cuda_ms(lambda: card(xd), cold=False, iters=10)["ms"]
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:
@@ -472,9 +459,10 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
                 out = _post(url + "/v1/segment_kspace", body)
                 latencies.append(time.perf_counter() - t1)
                 in_lock.append(runner.last_latency_s)
-                if morphology.LAUNCHES <= before:
-                    raise AssertionError(f"request {i} did not launch "
-                                         "open_close")
+                if morphology.LAUNCHES != before + 1:
+                    raise AssertionError(
+                        f"request {i} launched open_close "
+                        f"{morphology.LAUNCHES - before} times, not once")
                 for key in ("mask", "body_mask"):
                     if (out[key].shape != (shape[0], 320, 320)
                             or out[key].dtype != np.uint8):

@@ -105,21 +105,26 @@ def load_library() -> ctypes.CDLL:
     """Build and load ``csrc/open_close.cu`` (once per process)."""
     lib = _build.load("open_close")
     fn = lib.open_close_u8
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def open_close(mask: torch.Tensor, band_rows: int | None = None,
-               staged: bool = True) -> torch.Tensor:
+def open_close(mask: torch.Tensor) -> torch.Tensor:
     """disk(2) opening then closing of each slice of a contiguous
     ``(S, H, W)`` uint8 tensor, nonzero meaning 1; returns a new uint8 0/1
     tensor.
 
     A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes
-    to :func:`open_close_reference`. ``band_rows`` overrides
-    :func:`band_plan`'s band height (tests and timings use it)."""
+    to :func:`open_close_reference`."""
+    return _open_close(mask, None)
+
+
+def _open_close(mask: torch.Tensor, band_rows: int | None) -> torch.Tensor:
+    """:func:`open_close` with the kernel's band height ``band_rows`` in
+    place of :func:`band_plan`'s when it is not None (the card tests and
+    the kernel probe set it)."""
     global LAUNCHES
     if not isinstance(mask, torch.Tensor):
         raise TypeError(f"mask must be a torch.Tensor, got {type(mask)}")
@@ -132,14 +137,14 @@ def open_close(mask: torch.Tensor, band_rows: int | None = None,
         raise ValueError(f"mask needs H, W >= 1, got {tuple(mask.shape)}")
     if not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
+    if band_rows is not None and band_rows < 1:
+        raise ValueError(f"band_rows must be >= 1, got {band_rows}")
     if mask.device.type == "cpu":
         return open_close_reference(mask)
     if mask.device.type != "cuda":
         raise ValueError(f"unsupported device {mask.device}")
     rows, n_bands = band_plan(s, h)
     if band_rows is not None:
-        if band_rows < 1:
-            raise ValueError(f"band_rows must be >= 1, got {band_rows}")
         rows, n_bands = band_rows, -(-h // band_rows)
     if s * n_bands >= 2 ** 31:
         raise ValueError(f"{s} slices of {n_bands} bands exceed the grid")
@@ -150,7 +155,7 @@ def open_close(mask: torch.Tensor, band_rows: int | None = None,
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream
         rc = lib.open_close_u8(mask.data_ptr(), out.data_ptr(), s, h, w,
-                               rows, n_bands, int(staged), stream)
+                               rows, n_bands, stream)
     if rc != 0:
         raise RuntimeError(f"open_close_u8 launch failed: CUDA error {rc}")
     LAUNCHES += 1

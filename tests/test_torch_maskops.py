@@ -90,17 +90,58 @@ def test_body_mask_constant_slice_is_empty():
     assert masks.dtype == np.uint8 and not masks[0].any()
 
 
-@pytest.mark.parametrize("shape", [(64, 64), (96, 80)])
-def test_open_close_plain_matches_jax_and_pallas(rng, shape):
-    m = rng.random((3,) + shape) > 0.55
+# The kernel's word edges (W mod 32) at small H, at three mask densities.
+# The Pallas kernel (interpret mode) runs at the two first shapes and one
+# edge shape; the conv formulation at all.
+OPEN_CLOSE_CASES = [((64, 64), 0.45), ((96, 80), 0.45)] + [
+    ((h, w), d) for h, w in [(40, 1), (33, 31), (17, 32), (40, 33), (25, 65)]
+    for d in (0.05, 0.5, 0.95)]
+PALLAS_SHAPES = {(64, 64), (96, 80), (33, 31)}
+
+
+@pytest.mark.parametrize("shape,density", OPEN_CLOSE_CASES)
+def test_open_close_plain_matches_jax_and_pallas(rng, shape, density):
+    m = rng.random((3,) + shape) > 1 - density
     got = morphology.open_close(torch.from_numpy(m.astype(np.uint8)))
     se = jm.disk(2)
     for s in range(3):
         conv = np.asarray(jm.binary_closing(
             jm.binary_opening(jnp.asarray(m[s]), se), se))
-        pallas = np.asarray(fused_open_close(jnp.asarray(m[s])))
         np.testing.assert_array_equal(got[s].numpy().astype(bool), conv)
-        np.testing.assert_array_equal(got[s].numpy().astype(bool), pallas)
+        if shape in PALLAS_SHAPES:
+            pallas = np.asarray(fused_open_close(jnp.asarray(m[s])))
+            np.testing.assert_array_equal(got[s].numpy().astype(bool),
+                                          pallas)
+
+
+@pytest.mark.parametrize("band_rows", morphology.BAND_ROWS)
+@pytest.mark.parametrize("offset", [-1, 0, 1, 9])
+def test_band_plan_covers_each_row_once(band_rows, offset):
+    """The kernel's grid: band b of a slice writes rows [b * R,
+    min((b + 1) * R, H)). At the heights the card tests use, the bands of
+    the wrapper's choice cover [0, H) exactly once, and so do those of a
+    forced band height."""
+    for s, h in [(1, band_rows + offset), (3, band_rows + offset), (1, 1),
+                 (2, 2), (8, 640), (35, 640)]:
+        for rows, n_bands in [morphology.band_plan(s, h),
+                              (band_rows, -(-h // band_rows))]:
+            covered = np.zeros(h, int)
+            for b in range(n_bands):
+                covered[b * rows:min((b + 1) * rows, h)] += 1
+            assert (covered == 1).all(), (s, h, rows, n_bands)
+
+
+def test_band_plan_fills_the_card():
+    """At a served request's (8, 640, 368) and a volume's (35, 640, 368)
+    the grid has at least one block per SM of an H100 (132)."""
+    for s in (8, 35):
+        rows, n_bands = morphology.band_plan(s, 640)
+        assert s * n_bands >= morphology.SMS
+        assert rows in morphology.BAND_ROWS
+    assert morphology.band_plan(35, 640)[0] == 64
+    assert morphology.band_plan(8, 640)[0] == 32
+    with pytest.raises(ValueError):
+        morphology._open_close(torch.zeros(1, 8, 8, dtype=torch.uint8), 0)
 
 
 @pytest.mark.parametrize("case", ["ones", "zeros", "single_pixel"])
