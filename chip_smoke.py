@@ -24,7 +24,14 @@ Phases, each printing one JSON line with its seconds:
   5  the server, started from torch's own precision flags as its command
      line starts it, answering three /v1/segment_kspace requests, each
      checked against the in-process result and shown to launch the kernel
-     exactly once.
+     exactly once;
+  6  train: pack four synthetic 35-slice volumes with the port's packer
+     (one open/close launch each), train two epochs through the launcher
+     at full width (batch 8, aug light, bf16 autocast and store, as the
+     reference run), serve the best checkpoint back on the val volume;
+     one engine step card vs CPU in f32 (loss, every gradient, the BN
+     running stats); train slices/s at batch 8 f32, batch 8 bf16 and
+     batch 128 bf16 with peak memory.
 Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any mismatch raises and the script exits
 non-zero; without a card it exits non-zero and prints no result, and a
@@ -34,6 +41,7 @@ watchdog turns a hang into a non-zero exit with a traceback.
 from __future__ import annotations
 
 import copy
+import csv
 import faulthandler
 import io
 import json
@@ -51,7 +59,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mri_acl_imagesegmentation_adsp_tpu_torch.cli import serve
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli import launcher, serve
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
+    load_model_from_ckpt)
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
+    SliceStore, gather_batch)
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
+    pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
@@ -61,8 +75,17 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     _build, morphology)
+from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
+    grads_f64)
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
+    augment_batch)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
     save_best)
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.engine import Engine
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
+    LossManager)
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
+    make_optimizer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
     cuda_ms, host_us)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
@@ -80,6 +103,18 @@ MODEL_BATCH = (16, 1, 320, 320)
 LOGIT_RTOL = 1e-3          # card vs CPU f32 logits, relative to max|logit|
 TENSOR_TOL = 1e-4          # card vs CPU z-scored tensor on equal-mask slices
 MASK_DIFF_MAX = 1e-3       # card vs CPU body-mask pixels allowed to differ
+TRAIN_VOLUMES = 4          # packed for phase 6: 3 train, 1 val at ratio 0.8
+STEP_LOSS_RTOL = 1e-4      # card vs CPU one train step, f32, TF32 off
+STEP_GRAD_RTOL = 1e-3      # per gradient tensor, times its max |g|
+STEP_GRAD_FLOOR_X = 3.0    # or this many times f32's floor (step_parity)
+STEP_GRAD_F64_RTOL = 1e-6  # the same step in float64, per tensor
+STEP_BN_RTOL = 1e-5        # BN running stats, relative
+THROUGHPUT = (("b8_f32", 8, False), ("b8_bf16", 8, True),
+              ("b128_bf16", 128, True))
+WARMUP_STEPS, TIMED_STEPS = 3, 20
+RUN_FILES = ("args.json", "history_epoch.csv", "history_step.csv",
+             "history.json", "summary.json", "metrics.json", "best.ckpt",
+             "best.ckpt.args.json")
 
 
 def emit(obj: dict) -> None:
@@ -490,6 +525,314 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
           "precision_flags": served_flags, "open_close_launches": launches})
     return launches
 
+def _train_model(seed: int) -> torch.nn.Module:
+    """The reference's model at full width with seeded random weights."""
+    return init_weights(build_unet("unet", "resnet34", in_ch=1, classes=1),
+                        torch.Generator().manual_seed(seed))
+
+
+def _engine(model: torch.nn.Module, aug: str, amp: bool) -> Engine:
+    """The reference run's loss and optimizer (lr 1e-3, wd 1e-4, clip 5)."""
+    return Engine(model, LossManager(classes=1, name="dice_bce"),
+                  make_optimizer(model.parameters(), 1e-3, 1e-4, 5.0),
+                  classes=1, aug=aug, amp=amp)
+
+
+def pack_volumes(dev: torch.device, art: str) -> dict:
+    """The training path's kernel: one open/close launch per packed
+    volume, counted from 0 just before the packing."""
+    pre = MRIKneePreprocessor(out_size=(320, 320), slice_keep=(0.3, 0.7),
+                              device=dev)
+    pairs = [synthetic_kspace_pairs(seed=i, s=VOLUME[0], h=VOLUME[1],
+                                    w=VOLUME[2])
+             for i in range(TRAIN_VOLUMES)]
+    secs, slices = [], []
+    morphology.LAUNCHES = 0
+    for i, pair in enumerate(pairs):
+        t1 = time.perf_counter()
+        info = pack_kspace_volume(pre, pair, os.path.join(art, f"vol{i}"))
+        secs.append(time.perf_counter() - t1)
+        slices.append(info["num_slices"])
+    launches = morphology.LAUNCHES
+    if launches != TRAIN_VOLUMES:
+        raise AssertionError(f"packing {TRAIN_VOLUMES} volumes launched "
+                             f"open_close {launches} times")
+    if slices != [14] * TRAIN_VOLUMES:
+        raise AssertionError(f"slices per pack {slices}, expected 14 each")
+    return {"launches": launches, "pack_s": secs,
+            "slices_per_volume": slices}
+
+
+def train_through_launcher(dev: torch.device, tmp: str) -> dict:
+    """Two epochs at the reference settings through the launcher, then the
+    best checkpoint served back on the val volume."""
+    run = os.path.join(tmp, "run")
+    t1 = time.perf_counter()
+    rc = launcher.main([
+        "--skip-preprocess", "--artifact-dir", os.path.join(tmp, "art"),
+        "--list-dir", os.path.join(tmp, "lists"), "--out-dir", run,
+        "--epochs", "2", "--batch-size", "8", "--aug", "light",
+        "--store-dtype", "bfloat16", "--device", str(dev)])
+    secs = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"launcher returned {rc}")
+    missing = [f for f in RUN_FILES if not os.path.isfile(
+        os.path.join(run, f))]
+    samples = sorted(f for f in os.listdir(os.path.join(run, "samples"))
+                     if f.endswith(".png"))
+    if missing or not samples:
+        raise AssertionError(f"run dir lacks {missing or 'samples/*.png'}")
+    with open(os.path.join(run, "history_step.csv"), encoding="utf-8") as f:
+        losses = [float(r["train_loss_step"]) for r in csv.DictReader(f)]
+    if len(losses) != 10 or not all(np.isfinite(losses)):
+        raise AssertionError(f"step losses {losses}: expected 10 finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the train loss did not fall: {losses}")
+    with open(os.path.join(run, "history.json"), encoding="utf-8") as f:
+        history = json.load(f)
+    model, _ = load_model_from_ckpt(os.path.join(run, "best.ckpt"), dev)
+    with open(os.path.join(tmp, "lists", "val.txt"), encoding="utf-8") as f:
+        val_npz = f.read().split()
+    with np.load(val_npz[0]) as z:
+        img, msk = z["img"], z["msk"]
+    probs = segment_volume_2d(model, torch.from_numpy(img).to(dev),
+                              batch_size=16)
+    if (tuple(probs.shape) != img.shape
+            or not bool(torch.isfinite(probs).all())):
+        raise AssertionError(f"served probabilities {tuple(probs.shape)}")
+    pred = threshold_probs(probs, 1, 0.5).cpu().numpy().astype(bool)
+    inter = float((pred & (msk > 0)).sum())
+    served_dice = (2 * inter + 1e-7) / (pred.sum() + (msk > 0).sum() + 1e-7)
+    return {"seconds": secs, "step_losses": losses, "history": history,
+            "samples": len(samples), "served_val_slices": int(img.shape[0]),
+            "served_val_dice_f32": float(served_dice)}
+
+
+def _one_step(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
+              d: torch.device) -> dict:
+    """One engine step (aug none, f32) of ``model`` on device ``d``: its
+    loss, gradients, BN running stats and updated parameters, on the CPU."""
+    model = copy.deepcopy(model).to(d)
+    eng = _engine(model, "none", amp=False)
+    loss, grads = eng.grads_one(x.to(d), y.to(d), None)
+    eng.optimizer.step(grads)
+    names = [n for n, _ in model.named_parameters()]
+    return {"loss": float(loss),
+            "grads": {n: g.cpu() for n, g in zip(names, grads)},
+            "stats": {n: b.cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+            "params": {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}}
+
+
+def _rel_to_max(got: dict, want: dict) -> dict:
+    """Per tensor: max |got - want| / max |want|."""
+    return {n: float((got[n] - w).abs().max()) / (float(w.abs().max())
+                                                  + 1e-30)
+            for n, w in want.items()}
+
+
+def step_parity(dev: torch.device, src: SliceStore) -> dict:
+    """One engine step from the same weights and batch on the card and on
+    the CPU (f32, TF32 off, cuDNN deterministic: the caller's flags).
+
+    The loss and the BN running stats are held to STEP_LOSS_RTOL and
+    STEP_BN_RTOL. A gradient tensor is held to STEP_GRAD_RTOL of its max
+    |g|, or, where f32 cannot resolve that here, to STEP_GRAD_FLOOR_X
+    times the floor: how far the CPU's gradients move, at worst over the
+    tensors, when every input pixel moves by one f32 ulp. At the
+    reference's full width from a random init the deep layers' gradients
+    are sensitive enough that this floor is a few percent of a tensor's
+    max. So the same step is also taken in float64 on both sides
+    (``tools/probe_train_step.py:grads_f64``), where rounding cannot show,
+    and its gradients are held to STEP_GRAD_F64_RTOL."""
+    x = torch.from_numpy(src.images[:2, None].copy())
+    y = torch.from_numpy(src.masks[:2].astype(np.uint8))
+    model = _train_model(7)
+    cpu_dev = torch.device("cpu")
+    cpu = _one_step(model, x, y, cpu_dev)
+    ulp = torch.nextafter(x, torch.where(
+        torch.rand(x.shape, generator=torch.Generator().manual_seed(0))
+        < 0.5, torch.inf, -torch.inf))
+    moved = _one_step(model, ulp, y, cpu_dev)
+    card = _one_step(model, x, y, dev)
+    loss64_cpu, g64_cpu = grads_f64(model, x, y, cpu_dev)
+    loss64_card, g64_card = grads_f64(model, x, y, dev)
+    names = list(cpu["grads"])
+    f64_rel = _rel_to_max(dict(zip(names, g64_card)),
+                          dict(zip(names, g64_cpu)))
+    grad_rel = _rel_to_max(card["grads"], cpu["grads"])
+    floor_rel = _rel_to_max(moved["grads"], cpu["grads"])
+    floor = max(floor_rel.values())
+    grad_tol = max(STEP_GRAD_RTOL, STEP_GRAD_FLOOR_X * floor)
+    bn_rel = _rel_to_max(card["stats"], cpu["stats"])
+    dp = torch.cat([(card["params"][n] - p).abs().flatten()
+                    for n, p in cpu["params"].items()])
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {"batch": [2, 1, 320, 320], "loss_cpu": cpu["loss"],
+           "loss_card": card["loss"],
+           "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(
+               cpu["loss"]),
+           "loss_tol": STEP_LOSS_RTOL,
+           "grad_worst_rel_to_max": grad_rel[worst],
+           "grad_worst_tensor": worst,
+           "grad_median_rel_to_max": float(np.median(list(
+               grad_rel.values()))),
+           "grad_tensors": len(grad_rel),
+           "grad_tensors_within_1e-3": sum(v <= STEP_GRAD_RTOL
+                                           for v in grad_rel.values()),
+           "grad_floor_one_ulp": floor,
+           "loss_rel_one_ulp": abs(moved["loss"] - cpu["loss"]) / abs(
+               cpu["loss"]),
+           "grad_floor_median": float(np.median(list(floor_rel.values()))),
+           "grad_tol": grad_tol,
+           "f64_loss_rel_err": abs(loss64_card - loss64_cpu) / abs(
+               loss64_cpu),
+           "f64_grad_worst_rel_to_max": max(f64_rel.values()),
+           "f64_grad_worst_tensor": max(f64_rel, key=f64_rel.get),
+           "f64_grad_tol": STEP_GRAD_F64_RTOL,
+           "bn_worst_rel_to_max": max(bn_rel.values()),
+           "bn_worst_buffer": max(bn_rel, key=bn_rel.get),
+           "bn_tol": STEP_BN_RTOL,
+           "param_max_abs_diff": float(dp.max()),
+           "param_share_over_1e-5": float((dp > 1e-5).float().mean())}
+    if (out["loss_rel_err"] > STEP_LOSS_RTOL or grad_rel[worst] > grad_tol
+            or out["f64_grad_worst_rel_to_max"] > STEP_GRAD_F64_RTOL
+            or out["bn_worst_rel_to_max"] > STEP_BN_RTOL):
+        raise AssertionError(f"train step card vs CPU: {out}")
+    if out["param_max_abs_diff"] > 2.1e-3:  # Adam moves a step by <= lr
+        raise AssertionError(f"parameters moved apart: {out}")
+    return out
+
+
+def train_throughput(dev: torch.device, src: SliceStore, batch: int,
+                     amp: bool) -> dict:
+    """Slices/s of the reference step (aug light) over TIMED_STEPS steps
+    after WARMUP_STEPS, the host's per-step work in the window."""
+    store = src.to_device(1, torch.bfloat16 if amp else torch.float32, dev)
+    eng = _engine(_train_model(0).to(dev), "light", amp)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rows(steps):
+        return torch.randint(0, store.num_slices, (steps, batch),
+                             generator=gen, device=dev)
+    eng.train_steps(store, rows(WARMUP_STEPS), gen)
+    perm = rows(TIMED_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    losses = eng.train_steps(store, perm, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite loss at batch {batch}")
+    return {"batch": batch, "amp_bf16": amp,
+            "store_dtype": str(store.images.dtype).removeprefix("torch."),
+            "slices_per_s": TIMED_STEPS * batch / secs,
+            "ms_per_step": secs / TIMED_STEPS * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def train_breakdown(dev: torch.device, src: SliceStore, batch: int,
+                    amp: bool, steps: int = 10) -> dict:
+    """Where a step's time goes: for each stage, the card's time between
+    CUDA events recorded around it and the host's time to issue it, over
+    ``steps`` steps after two warm-up steps; then one validation pass over
+    ``src`` and the best-checkpoint and sample writes, on the host clock
+    with a synchronize."""
+    store = src.to_device(1, torch.bfloat16 if amp else torch.float32, dev)
+    eng = _engine(_train_model(0).to(dev), "light", amp)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randint(0, store.num_slices, (steps + 2, batch),
+                         generator=gen, device=dev)
+    eng.train_steps(store, rows[:2], gen)
+    stages = ("gather", "augment", "forward_loss", "backward", "optimizer")
+    events = [[torch.cuda.Event(enable_timing=True)
+               for _ in range(len(stages) + 1)] for _ in range(steps)]
+    host = dict.fromkeys(stages, 0.0)
+    torch.cuda.synchronize()
+    for i in range(steps):
+        ev = events[i]
+        ev[0].record()
+        marks = [time.perf_counter()]
+        x, y = gather_batch(store, rows[2 + i])
+        ev[1].record()
+        marks.append(time.perf_counter())
+        x, y = augment_batch(x, y, gen, "light")
+        ev[2].record()
+        marks.append(time.perf_counter())
+        eng.model.train()
+        loss = eng._loss_from_logits(eng._forward(x), y)
+        ev[3].record()
+        marks.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, eng.params)
+        ev[4].record()
+        marks.append(time.perf_counter())
+        eng.optimizer.step(list(grads))
+        ev[5].record()
+        marks.append(time.perf_counter())
+        for j, st in enumerate(stages):
+            host[st] += marks[j + 1] - marks[j]
+    torch.cuda.synchronize()
+    card = {st: sum(events[i][j].elapsed_time(events[i][j + 1])
+                    for i in range(steps)) / steps
+            for j, st in enumerate(stages)}
+    t1 = time.perf_counter()
+    eng.validate(store, max(1, batch // 2))
+    validate_s = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        save_best(os.path.join(tmp, "best.ckpt"), eng.model.state_dict(),
+                  {"model": "unet"})
+        ckpt_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        eng.save_samples(store, tmp, max_samples=6)
+        samples_s = time.perf_counter() - t1
+    return {"batch": batch, "amp_bf16": amp, "steps": steps,
+            "card_ms": card, "card_ms_step": sum(card.values()),
+            "host_ms": {st: v / steps * 1e3 for st, v in host.items()},
+            "host_ms_step": sum(host.values()) / steps * 1e3,
+            "validate_s": validate_s, "validate_slices": store.num_slices,
+            "save_best_s": ckpt_s, "save_samples_s": samples_s}
+
+
+def phase_train(dev: torch.device, defaults: dict) -> int:
+    """The training path: returns open_close's launches while packing."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    with tempfile.TemporaryDirectory() as tmp:
+        packed = pack_volumes(dev, os.path.join(tmp, "art"))
+        trained = train_through_launcher(dev, tmp)
+        with open(os.path.join(tmp, "lists", "train.txt"),
+                  encoding="utf-8") as f:
+            src = SliceStore.from_files(f.read().split())
+    timed_flags = {"cudnn_allow_tf32": False, "matmul_allow_tf32": False,
+                   "cudnn_deterministic": False}
+    _set_precision_flags(timed_flags)
+    speed, stages = {}, {}
+    for name, batch, amp in THROUGHPUT:
+        speed[name] = train_throughput(dev, src, batch, amp)
+        torch.cuda.empty_cache()
+        stages[name] = train_breakdown(dev, src, batch, amp)
+        torch.cuda.empty_cache()
+    emit({"phase": "train_speed", "throughput": speed,
+          "throughput_flags": timed_flags,
+          "throughput_steps": {"warmup": WARMUP_STEPS,
+                               "timed": TIMED_STEPS},
+          "breakdown": stages})
+    parity_flags = dict(timed_flags, cudnn_deterministic=True)
+    _set_precision_flags(parity_flags)
+    parity = step_parity(dev, src)
+    _set_precision_flags(defaults)
+    emit({"phase": "train", "seconds": time.perf_counter() - t0,
+          "model": "unet/resnet34", "input": [1, 320, 320],
+          "pack": packed, "launcher": trained,
+          "train_slices": int(len(src)), "launcher_flags": defaults,
+          "step_parity": parity, "step_parity_flags": parity_flags,
+          "slices_per_s": {k: v["slices_per_s"] for k, v in speed.items()},
+          "pack_s_per_volume": sum(packed["pack_s"]) / len(packed["pack_s"])})
+    return packed["launches"]
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -507,6 +850,8 @@ def main() -> int:
     row["launches"] = phase_serve(model, dev, defaults)
     if row["launches"] < 1:
         raise AssertionError("the main path launched open_close no time")
+    row["launches_by_path"] = {"serve": row["launches"],
+                               "train": phase_train(dev, defaults)}
     emit({"kernels": [row]})
     print(smi, flush=True)
     emit({"total_seconds": time.perf_counter() - t0})

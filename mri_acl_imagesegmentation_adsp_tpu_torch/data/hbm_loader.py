@@ -1,0 +1,137 @@
+"""Device-resident slice store: the whole preprocessed split on the card.
+
+Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/data/hbm_loader.py:30-227``:
+``read_list``, ``SliceStore`` (``from_files``, ``neighbor_table``,
+``to_device``), ``DeviceSliceStore``, ``gather_batch`` and
+``epoch_permutation``. Every ``volume.npz`` of a split is loaded once into
+flat ``(N, H, W)`` arrays on the device; a training step forms its batch by
+``index_select`` with rows of a permutation drawn on the device, so no batch
+crosses from the host. The 2.5-D neighbour channels are an ``(N, k)`` index
+table, edge-clamped inside each volume.
+
+Volumes are read with ``np.load`` on ``workers`` threads. The native C++
+reader and the store sharded over several devices are not ported yet.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def read_list(txt_path: str) -> List[str]:
+    """One ``volume.npz`` path per non-empty line."""
+    with open(txt_path, "r", encoding="utf-8") as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def _load_one(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    with np.load(path) as z:
+        return z["img"].astype(np.float32), z["msk"].astype(np.int32)
+
+
+@dataclass
+class SliceStore:
+    """Flat, volume-ordered slice arrays on the host."""
+    images: np.ndarray        # (N, H, W) float32, z-scored
+    masks: np.ndarray         # (N, H, W) int32, {0, 1} or class labels
+    vol_starts: np.ndarray    # (V,) int64 first row of each volume
+    vol_sizes: np.ndarray     # (V,) int64 slices of each volume
+    files: List[str]
+
+    @classmethod
+    def from_list(cls, list_txt: str, workers: int = 0) -> "SliceStore":
+        return cls.from_files(read_list(list_txt), workers=workers)
+
+    @classmethod
+    def from_files(cls, files: Sequence[str],
+                   workers: int = 0) -> "SliceStore":
+        """Load ``img`` ``(S, 1, H, W)`` and ``msk`` ``(S, H, W)`` of each
+        pack, on ``workers`` threads when there are several files."""
+        if not files:
+            raise ValueError("Empty volume list")
+        if workers and len(files) > 1:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                loaded = list(ex.map(_load_one, files))
+        else:
+            loaded = [_load_one(p) for p in files]
+        sizes = np.asarray([x.shape[0] for x, _ in loaded], np.int64)
+        return cls(
+            images=np.concatenate([x[:, 0] for x, _ in loaded], axis=0),
+            masks=np.concatenate([y for _, y in loaded], axis=0),
+            vol_starts=np.concatenate([[0], np.cumsum(sizes)[:-1]]
+                                      ).astype(np.int64),
+            vol_sizes=sizes,
+            files=list(files),
+        )
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+    def neighbor_table(self, k: int) -> np.ndarray:
+        """``(N, k)`` int32 rows of each slice's 2.5-D stack: offsets
+        ``-k//2 .. k//2``, clamped to the slice's own volume."""
+        if k < 1 or k % 2 != 1:
+            raise ValueError(f"k must be odd (1, 3, 5, ...), got {k}")
+        half = k // 2
+        starts = np.repeat(self.vol_starts, self.vol_sizes)
+        ends = starts + np.repeat(self.vol_sizes, self.vol_sizes) - 1
+        base = np.arange(len(self))
+        return np.stack([np.clip(base + d, starts, ends)
+                         for d in range(-half, half + 1)],
+                        axis=1).astype(np.int32)
+
+    def to_device(self, k: int = 1, image_dtype: torch.dtype = torch.float32,
+                  device: str | torch.device = "cuda") -> "DeviceSliceStore":
+        """Copy the store and its neighbour table for ``k`` to ``device``.
+        Masks go as uint8 when every label is below 256, else int32."""
+        mask_dtype = (torch.uint8 if np.max(self.masks, initial=0) < 256
+                      else torch.int32)
+        return DeviceSliceStore(
+            images=torch.from_numpy(self.images).to(device, image_dtype),
+            masks=torch.from_numpy(self.masks).to(device, mask_dtype),
+            neighbors=torch.from_numpy(
+                self.neighbor_table(k).astype(np.int64)).to(device),
+            k=k,
+            num_slices=len(self),
+        )
+
+
+@dataclass
+class DeviceSliceStore:
+    """The store's tensors on one device."""
+    images: torch.Tensor      # (N, H, W) float32 or bfloat16
+    masks: torch.Tensor       # (N, H, W) uint8 (int32 if labels >= 256)
+    neighbors: torch.Tensor   # (N, k) int64
+    k: int
+    num_slices: int
+
+
+def gather_batch(store: DeviceSliceStore, idx: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``idx`` ``(B,)`` -> ``x`` ``(B, k, H, W)`` float32 (channels are
+    the neighbour slices) and ``y`` ``(B, H, W)``, the centre slice's mask."""
+    nbr = store.neighbors.index_select(0, idx)                 # (B, k)
+    x = store.images.index_select(0, nbr.reshape(-1))
+    x = x.reshape(nbr.shape + store.images.shape[1:])
+    return x.float(), store.masks.index_select(0, idx)
+
+
+def epoch_permutation(generator: torch.Generator, num_slices: int,
+                      batch_size: int, drop_last: bool = True
+                      ) -> torch.Tensor:
+    """Shuffled ``(steps, batch)`` int64 row matrix for one epoch, drawn on
+    the generator's device. Without ``drop_last`` the last row is filled
+    with the permutation's first entries."""
+    perm = torch.randperm(num_slices, generator=generator,
+                          device=generator.device)
+    steps = num_slices // batch_size
+    if not drop_last and steps * batch_size < num_slices:
+        pad = (steps + 1) * batch_size - num_slices
+        perm = torch.cat([perm, perm[:pad]])
+        steps += 1
+    return perm[:steps * batch_size].reshape(steps, batch_size)

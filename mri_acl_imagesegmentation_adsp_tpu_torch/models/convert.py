@@ -6,8 +6,8 @@ The inverse of the layout map in
 (``convert_resnet_encoder``), extended to the decoder blocks and the
 top-level ``Conv_0`` head: conv kernels go HWIO -> OIHW, and BatchNorm's
 ``scale / bias`` + ``mean / var`` become ``weight / bias`` +
-``running_mean / running_var``. Flax's BatchNorm ``momentum=0.9`` is torch's
-``momentum=0.1`` (see ``unet2d.py``); the stats carry over unchanged.
+``running_mean / running_var``; the stats carry over unchanged, and the
+port's BatchNorm (``models/norm.py``) updates them as Flax's does.
 Any leaf of either tree that maps nowhere, and any BatchNorm whose params
 and stats do not pair up, raises.
 """

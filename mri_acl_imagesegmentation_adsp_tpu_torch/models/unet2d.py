@@ -9,9 +9,10 @@ so only the plain form is here.
 
 Module names follow the JAX parameter tree (``blocks`` counts the residual
 blocks across stages, as ``_BasicBlock_{g}`` does), so
-``models/convert.py`` is a renaming. BatchNorm is ``eps=1e-5,
-momentum=0.1``: Flax's momentum 0.9 weights the running value, torch's 0.1
-the new batch value, so the two update the running stats identically.
+``models/convert.py`` is a renaming. BatchNorm is ``models/norm.py``'s,
+whose train mode takes the reference's biased one-pass batch variance and
+running-stat update (``nn.BatchNorm2d`` folds the unbiased variance into
+``running_var``); its state_dict keys are ``nn.BatchNorm2d``'s.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .norm import BatchNorm2d
+
 # ResNet stage definitions: name -> (blocks per stage, bottleneck?)
 RESNET_CFG = {
     "resnet18": ((2, 2, 2, 2), False),
@@ -31,8 +34,8 @@ RESNET_CFG = {
 _STAGE_WIDTHS = (64, 128, 256, 512)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=1e-5)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,

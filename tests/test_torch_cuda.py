@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernel against its plain version, and the training path
+against the CPU, on the card.
 
 Run on a machine with an NVIDIA card and nvcc (``--noconftest``: that
 machine has no JAX, which tests/conftest.py imports):
@@ -11,8 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
+    SliceStore)
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
+    pack_kspace_volume)
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
+    MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import maskops
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import morphology
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
+    synthetic_kspace_pairs)
 
 pytestmark = pytest.mark.cuda
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
@@ -104,3 +113,44 @@ def test_body_mask_on_the_card_matches_the_goldens(card):
     got = maskops.body_mask(imgs.to(card)).cpu().numpy()
     for i in range(8):
         np.testing.assert_array_equal(got[i], z[f"mask_{i}"])
+
+
+def test_pack_kspace_volume_on_the_card_launches_the_kernel_once(card,
+                                                                  tmp_path):
+    """The training path's kernel: one open/close launch per packed volume,
+    and the card's pack as the CPU's (masks in at most 0.1 % of pixels,
+    tensor within 1e-4 on the slices whose masks agree)."""
+    pair = synthetic_kspace_pairs(seed=0, s=35, h=640, w=368)
+    kw = dict(out_size=(320, 320), slice_keep=(0.3, 0.7))
+    before = morphology.LAUNCHES
+    info = pack_kspace_volume(MRIKneePreprocessor(device=card, **kw), pair,
+                              str(tmp_path / "card"))
+    assert morphology.LAUNCHES == before + 1 and info["num_slices"] == 14
+    pack_kspace_volume(MRIKneePreprocessor(device="cpu", **kw), pair,
+                       str(tmp_path / "cpu"))
+    with np.load(tmp_path / "card" / "volume.npz") as a, \
+            np.load(tmp_path / "cpu" / "volume.npz") as b:
+        assert (a["msk"] != b["msk"]).mean() <= 1e-3
+        same = (a["msk"] == b["msk"]).reshape(14, -1).all(axis=1)
+        assert same.any()
+        assert np.abs(a["img"][same] - b["img"][same]).max() <= 1e-4
+
+
+def test_train_step_on_the_card_matches_the_cpu(card, tmp_path):
+    """One engine step at full width, card vs CPU, at ``chip_smoke.py``
+    phase 6's tolerances (it raises past them)."""
+    import chip_smoke
+    pre = MRIKneePreprocessor(out_size=(320, 320), device=card)
+    pack_kspace_volume(pre, synthetic_kspace_pairs(seed=1, s=35, h=640,
+                                                   w=368),
+                       str(tmp_path / "vol"))
+    src = SliceStore.from_files([str(tmp_path / "vol" / "volume.npz")])
+    flags = chip_smoke._precision_flags()
+    chip_smoke._set_precision_flags({"cudnn_allow_tf32": False,
+                                     "matmul_allow_tf32": False,
+                                     "cudnn_deterministic": True})
+    try:
+        out = chip_smoke.step_parity(card, src)
+    finally:
+        chip_smoke._set_precision_flags(flags)
+    assert out["loss_rel_err"] <= chip_smoke.STEP_LOSS_RTOL
