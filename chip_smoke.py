@@ -31,7 +31,17 @@ Phases, each printing one JSON line with its seconds:
      reference run), serve the best checkpoint back on the val volume;
      one engine step card vs CPU in f32 (loss, every gradient, the BN
      running stats); train slices/s at batch 8 f32, batch 8 bf16 and
-     batch 128 bf16 with peak memory.
+     batch 128 bf16 with peak memory;
+  7  evaluate and serve the rest: the batch inference CLI on phase 6's val
+     list and best checkpoint with --metrics, plain and with --tta hflip;
+     evaluate_volume at 35x320x320 card vs CPU (the exact EDT bit-equal,
+     HD95 / ASSD against the CPU and a scipy oracle of the reference's
+     medimetrics, the no-zero sentinel) and its time per volume; a daemon
+     with --tta hflip --microbatch-window-ms 5 answering eight concurrent
+     /v1/segment requests and one /v1/segment_kspace request (one
+     open/close launch), with its /metricsz counts; UNet++ at full width
+     (logits card vs CPU, b8 bf16 train slices/s, a checkpoint served
+     back); the run report of phase 6's run directory.
 Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any mismatch raises and the script exits
 non-zero; without a card it exits non-zero and prints no result, and a
@@ -59,7 +69,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mri_acl_imagesegmentation_adsp_tpu_torch.cli import launcher, serve
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli import infer, launcher, serve
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
     load_model_from_ckpt)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
@@ -69,12 +79,15 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
-    segment_volume_2d, threshold_probs)
+    SURFACE_CHUNK, evaluate_volume, segment_volume_2d, slice_metrics,
+    threshold_probs)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
+from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     _build, morphology)
+from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -115,6 +128,17 @@ WARMUP_STEPS, TIMED_STEPS = 3, 20
 RUN_FILES = ("args.json", "history_epoch.csv", "history_step.csv",
              "history.json", "summary.json", "metrics.json", "best.ckpt",
              "best.ckpt.args.json")
+EVAL_SLICES = 35           # evaluate_volume on the card: a whole volume
+EVAL_CPU_SLICES = 8        # of which the CPU and scipy check these
+EVAL_SHIFT_PX = 3          # pred = gt shifted along W, then opened
+EVAL_RTOL = 1e-6           # HD95 / ASSD card vs CPU, relative
+EVAL_SCIPY_RTOL = 1e-5     # HD95 / ASSD vs the scipy oracle, relative
+EVAL_TIMED_RUNS = 20
+SUMMARY_KEYS = {"volume", "num_slices", "pred_path", "dice", "iou", "hd95",
+                "assd"}
+MICROBATCH_REQUESTS = 8    # concurrent /v1/segment requests in phase 7
+NEAR_THRESHOLD = 1e-5      # mask pixels this close to 0.5 may differ
+UNETPP_BATCH = 4           # logits card vs CPU
 
 
 def emit(obj: dict) -> None:
@@ -452,6 +476,25 @@ def _serve_breakdown(runner, body: bytes) -> dict:
             "masks_to_host": t_d2h, "encode_response": t_enc}
 
 
+def _start_server(ckpt: str, dev: torch.device, batch_size: int = 16,
+                  **extra):
+    server = serve.create_server(SimpleNamespace(
+        ckpt=ckpt, host="127.0.0.1", port=0, batch_size=batch_size,
+        pre_out_size="320,320", device=str(dev), **extra))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, "http://127.0.0.1:%d" % server.server_address[1]
+
+
+def _stop_server(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    server.RequestHandlerClass.runner.close()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("server thread still running after shutdown")
+
+
 def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
                 shape=(SERVE_SLICES,) + VOLUME[1:]) -> int:
     """The main path: returns open_close's launches during the requests.
@@ -467,19 +510,14 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
         save_best(ckpt, model.state_dict(),
                   {"model": "unet", "encoder": "resnet34", "k": 1,
                    "classes": 1, "imagenet_norm": False})
-        server = serve.create_server(SimpleNamespace(
-            ckpt=ckpt, host="127.0.0.1", port=0, batch_size=16,
-            pre_out_size="320,320", warmup_shape=f"{shape[0]},320,320",
-            device=str(dev)))
+        server, thread, url = _start_server(
+            ckpt, dev, warmup_shape=f"{shape[0]},320,320")
         served_flags = _precision_flags()
-        if served_flags["cudnn_allow_tf32"] or served_flags[
-                "matmul_allow_tf32"]:
-            raise AssertionError(f"the daemon serves with TF32 on: "
-                                 f"{served_flags}")
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
         try:
-            url = "http://127.0.0.1:%d" % server.server_address[1]
+            if served_flags["cudnn_allow_tf32"] or served_flags[
+                    "matmul_allow_tf32"]:
+                raise AssertionError(f"the daemon serves with TF32 on: "
+                                     f"{served_flags}")
             with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
                 health = json.loads(r.read())
             if health.get("status") != "ok":
@@ -512,11 +550,7 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
             launches = morphology.LAUNCHES
             breakdown = _serve_breakdown(runner, bodies[0])
         finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
-    if thread.is_alive():
-        raise AssertionError("server thread still running after shutdown")
+            _stop_server(server, thread)
     emit({"phase": "serve", "seconds": time.perf_counter() - t0,
           "endpoint": "/v1/segment_kspace", "requests": len(vols),
           "request_shape": list(vols[0].shape),
@@ -525,9 +559,10 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
           "precision_flags": served_flags, "open_close_launches": launches})
     return launches
 
-def _train_model(seed: int) -> torch.nn.Module:
-    """The reference's model at full width with seeded random weights."""
-    return init_weights(build_unet("unet", "resnet34", in_ch=1, classes=1),
+def _train_model(seed: int, name: str = "unet") -> torch.nn.Module:
+    """The reference's model (or UNet++) at full width with seeded random
+    weights."""
+    return init_weights(build_unet(name, "resnet34", in_ch=1, classes=1),
                         torch.Generator().manual_seed(seed))
 
 
@@ -706,11 +741,11 @@ def step_parity(dev: torch.device, src: SliceStore) -> dict:
 
 
 def train_throughput(dev: torch.device, src: SliceStore, batch: int,
-                     amp: bool) -> dict:
+                     amp: bool, model: str = "unet") -> dict:
     """Slices/s of the reference step (aug light) over TIMED_STEPS steps
     after WARMUP_STEPS, the host's per-step work in the window."""
     store = src.to_device(1, torch.bfloat16 if amp else torch.float32, dev)
-    eng = _engine(_train_model(0).to(dev), "light", amp)
+    eng = _engine(_train_model(0, model).to(dev), "light", amp)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rows(steps):
@@ -796,16 +831,16 @@ def train_breakdown(dev: torch.device, src: SliceStore, batch: int,
             "save_best_s": ckpt_s, "save_samples_s": samples_s}
 
 
-def phase_train(dev: torch.device, defaults: dict) -> int:
-    """The training path: returns open_close's launches while packing."""
+def phase_train(dev: torch.device, defaults: dict, tmp: str) -> int:
+    """The training path: returns open_close's launches while packing.
+    The packs, lists and run directory stay in ``tmp`` for phase 7."""
     t0 = time.perf_counter()
     _set_precision_flags(defaults)
-    with tempfile.TemporaryDirectory() as tmp:
-        packed = pack_volumes(dev, os.path.join(tmp, "art"))
-        trained = train_through_launcher(dev, tmp)
-        with open(os.path.join(tmp, "lists", "train.txt"),
-                  encoding="utf-8") as f:
-            src = SliceStore.from_files(f.read().split())
+    packed = pack_volumes(dev, os.path.join(tmp, "art"))
+    trained = train_through_launcher(dev, tmp)
+    with open(os.path.join(tmp, "lists", "train.txt"),
+              encoding="utf-8") as f:
+        src = SliceStore.from_files(f.read().split())
     timed_flags = {"cudnn_allow_tf32": False, "matmul_allow_tf32": False,
                    "cudnn_deterministic": False}
     _set_precision_flags(timed_flags)
@@ -834,6 +869,324 @@ def phase_train(dev: torch.device, defaults: dict) -> int:
     return packed["launches"]
 
 
+def infer_cli(dev: torch.device, tmp: str) -> dict:
+    """The batch inference CLI on phase 6's val list and best checkpoint,
+    with --metrics, plain and with --tta hflip: every summary value finite,
+    and seconds per volume."""
+    lst = os.path.join(tmp, "lists", "val.txt")
+    with open(lst, encoding="utf-8") as f:
+        n_vol = len(f.read().split())
+    out = {}
+    for name, extra in (("plain", []), ("tta_hflip", ["--tta", "hflip"])):
+        out_dir = os.path.join(tmp, "preds_" + name)
+        t1 = time.perf_counter()
+        rc = infer.main(["--ckpt", os.path.join(tmp, "run", "best.ckpt"),
+                         "--list", lst, "--out-dir", out_dir, "--metrics",
+                         "--device", str(dev), *extra])
+        secs = time.perf_counter() - t1
+        with open(os.path.join(out_dir, "summary.json"),
+                  encoding="utf-8") as f:
+            summary = json.load(f)
+        if rc != 0 or len(summary) != n_vol:
+            raise AssertionError(f"infer {name}: rc {rc}, {summary}")
+        for entry in summary:
+            pred = np.load(entry["pred_path"])
+            if (set(entry) != SUMMARY_KEYS or pred.dtype != np.uint8
+                    or pred.shape[0] != entry["num_slices"]
+                    or not all(np.isfinite(entry[k]) for k in
+                               ("dice", "iou", "hd95", "assd"))):
+                raise AssertionError(f"infer {name}: {entry}")
+        out[name] = {"s_per_volume": secs / n_vol, "volumes": n_vol,
+                     "summary": [{k: v for k, v in e.items()
+                                  if k not in ("volume", "pred_path")}
+                                 for e in summary]}
+    return out
+
+
+def scipy_hd95_assd(pred: np.ndarray, gt: np.ndarray) -> tuple:
+    """The reference's medimetrics HD95 and ASSD of one slice, by scipy:
+    the border is ``a ^ (edt(~a) > 0 & a)`` (the whole mask), distances
+    from each mask's pixels to the other's nearest, both ways."""
+    from scipy.ndimage import distance_transform_edt as np_edt
+    a, b = pred.astype(bool), gt.astype(bool)
+    a_border = a ^ np.logical_and(np_edt(~a) > 0, a)
+    b_border = b ^ np.logical_and(np_edt(~b) > 0, b)
+    a_border = a_border if a_border.any() else a
+    b_border = b_border if b_border.any() else b
+    d = np.concatenate([np_edt(~b)[a_border], np_edt(~a)[b_border]])
+    if d.size == 0:
+        return 0.0, 0.0
+    return float(np.percentile(d, 95)), float(d.mean())
+
+
+def _rel_err(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.maximum(np.abs(want), 1e-30)))
+
+
+def evaluate_card_vs_cpu(dev: torch.device, tmp: str) -> dict:
+    """evaluate_volume at EVAL_SLICES x 320 x 320: gt is the val pack's body
+    mask tiled to EVAL_SLICES slices, pred the same shifted EVAL_SHIFT_PX
+    along W and opened with disk(2) by the port's plain morphology."""
+    with open(os.path.join(tmp, "lists", "val.txt"), encoding="utf-8") as f:
+        with np.load(f.read().split()[0]) as z:
+            msk = z["msk"].astype(np.uint8)
+    reps = -(-EVAL_SLICES // msk.shape[0])
+    gt = np.concatenate([msk] * reps)[:EVAL_SLICES]
+    shifted = np.zeros_like(gt)
+    shifted[..., EVAL_SHIFT_PX:] = gt[..., :-EVAL_SHIFT_PX]
+    pred = morphology.binary_opening(torch.from_numpy(shifted),
+                                     morphology.disk(2)).to(torch.uint8)
+    gt_t = torch.from_numpy(gt)
+    pred_d, gt_d = pred.to(dev), gt_t.to(dev)
+    n = EVAL_CPU_SLICES
+
+    # the exact EDT of the largest mask's background, and the no-zero
+    # sentinel: an empty prediction is H + W from every gt pixel
+    k = int(gt.sum(axis=(1, 2)).argmax())
+    edt_cpu = edt.edt(gt_t[k] == 0)
+    edt_card = edt.edt(gt_d[k] == 0).cpu()
+    ones = torch.ones(1, 320, 320, dtype=torch.uint8)
+    sentinel = edt.edt(ones.to(dev)).cpu()
+    empty_hd = edt.hd95_assd(torch.zeros_like(gt_d[k:k + 1]), gt_d[k:k + 1])
+    empty_hd_cpu = edt.hd95_assd(torch.zeros_like(gt_t[k:k + 1]),
+                                 gt_t[k:k + 1])
+    if not torch.equal(edt_card, edt_cpu):
+        raise AssertionError("the EDT differs card vs CPU: max "
+                             f"{float((edt_card - edt_cpu).abs().max())}")
+    if not (torch.equal(sentinel, torch.full_like(sentinel, 640.0))
+            and float(empty_hd[0]) == float(empty_hd_cpu[0]) == 640.0):
+        raise AssertionError("the no-zero sentinel is not H + W = 640")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    first = evaluate_volume(pred_d, gt_d)
+    first_s = time.perf_counter() - t1
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    evaluate_volume(pred_d, gt_d)
+    warm_s = time.perf_counter() - t1
+    per_card = slice_metrics(pred_d, gt_d).cpu().numpy()
+    per_cpu = slice_metrics(pred[:n], gt_t[:n]).numpy()
+    oracle = np.array([scipy_hd95_assd(pred[i].numpy(), gt[i])
+                       for i in range(n)])
+    errs = {"dice_iou_vs_cpu": _rel_err(per_card[:n, :2], per_cpu[:, :2]),
+            "hd95_assd_vs_cpu": _rel_err(per_card[:n, 2:], per_cpu[:, 2:]),
+            "hd95_assd_vs_scipy": _rel_err(per_card[:n, 2:], oracle)}
+    if (errs["dice_iou_vs_cpu"] > EVAL_RTOL
+            or errs["hd95_assd_vs_cpu"] > EVAL_RTOL
+            or errs["hd95_assd_vs_scipy"] > EVAL_SCIPY_RTOL):
+        raise AssertionError(f"evaluate_volume card vs CPU / scipy: {errs}")
+    if not all(np.isfinite(list(first.values()))) or first["assd"] <= 0:
+        raise AssertionError(f"evaluate_volume: {first}")
+    timers = {"cold": cuda_ms(lambda: slice_metrics(pred_d, gt_d), cold=True,
+                              iters=EVAL_TIMED_RUNS),
+              "warm": cuda_ms(lambda: slice_metrics(pred_d, gt_d),
+                              cold=False, iters=EVAL_TIMED_RUNS)}
+    # one 8-slice chunk's parts: an exact EDT, the sort of its distances,
+    # and the chunk's HD95 and ASSD with both transforms
+    c = SURFACE_CHUNK
+    dist = torch.where(pred_d[:c].flatten(1) > 0,
+                       edt.edt(gt_d[:c] == 0).flatten(1), torch.inf)
+    dist = torch.cat([dist, dist], dim=1)
+    parts = {"edt": cuda_ms(lambda: edt.edt(gt_d[:c] == 0), cold=False,
+                            iters=EVAL_TIMED_RUNS),
+             "sort": cuda_ms(lambda: torch.sort(dist, dim=-1), cold=False,
+                             iters=EVAL_TIMED_RUNS),
+             "hd95_assd": cuda_ms(lambda: edt.hd95_assd(pred_d[:c], gt_d[:c]),
+                                  cold=False, iters=EVAL_TIMED_RUNS)}
+    if any(t["late_runs"] for t in (*timers.values(), *parts.values())):
+        raise AssertionError(f"evaluate_volume timing held host time: "
+                             f"{timers}, {parts}")
+    return {"shape": list(gt.shape), "metrics": first,
+            "cpu_checked_slices": n, "errors": errs,
+            "tolerances": {"vs_cpu": EVAL_RTOL, "vs_scipy": EVAL_SCIPY_RTOL},
+            "edt_bit_equal": True, "sentinel": 640.0,
+            "card_ms_per_volume": {k: t["ms"] for k, t in timers.items()},
+            "card_ms_per_8_slice_chunk": {k: t["ms"] for k, t in
+                                          parts.items()},
+            "timers": timers, "host_s_first_call": first_s,
+            "host_s_warm_call": warm_s, "peak_gib": peak_gib}
+
+
+def _check_masks(got: np.ndarray, probs: torch.Tensor, what: str) -> dict:
+    """Served masks against in-process probabilities: equal except where
+    the probability lies within NEAR_THRESHOLD of 0.5. Returns the count of
+    pixels that near and of all pixels that differ."""
+    p = probs[:, 0].cpu().numpy()
+    near = np.abs(p - 0.5) < NEAR_THRESHOLD
+    want = (p > 0.5).astype(np.uint8)
+    if got.shape != p.shape or not np.array_equal(got[~near], want[~near]):
+        raise AssertionError(f"{what}: served masks differ from in-process")
+    return {"near": int(near.sum()), "differ": int((got != want).sum())}
+
+
+def _metricsz(url: str) -> dict:
+    with urllib.request.urlopen(url + "/metricsz", timeout=30) as r:
+        text = r.read().decode()
+    return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+            if not ln.startswith("#")}
+
+
+def serve_tta_microbatched(model: torch.nn.Module, dev: torch.device,
+                           tmp: str) -> dict:
+    """Phase 4's model behind a daemon with --tta hflip and a 5 ms
+    micro-batching window: MICROBATCH_REQUESTS concurrent /v1/segment
+    requests of phase 6's packed slices, then one /v1/segment_kspace. The
+    daemon's batch is one request's slice count, so a group's batches hold
+    the same slices as the per-request batches they are checked against."""
+    ckpt = os.path.join(tmp, "phase4.ckpt")
+    save_best(ckpt, model.state_dict(),
+              {"model": "unet", "encoder": "resnet34", "k": 1, "classes": 1,
+               "imagenet_norm": False})
+    vols = []
+    for i in range(TRAIN_VOLUMES):
+        with np.load(os.path.join(tmp, "art", f"vol{i}", "volume.npz")) as z:
+            img = z["img"][:, 0]
+        half = img.shape[0] // 2
+        vols += [img[:half], img[half:]]
+    vols = vols[:MICROBATCH_REQUESTS]
+    kpair = synthetic_kspace_pairs(seed=300, s=SERVE_SLICES, h=VOLUME[1],
+                                   w=VOLUME[2])
+    per = vols[0].shape[0]
+    server, thread, url = _start_server(
+        ckpt, dev, batch_size=per, warmup_shape=f"{per},320,320",
+        tta="hflip", microbatch_window_ms=5.0)
+    try:
+        replies, errors = [None] * len(vols), []
+
+        def client(i):
+            try:
+                replies[i] = _post(url + "/v1/segment", _npz_bytes(
+                    img=vols[i]))
+            except Exception as exc:        # noqa: BLE001
+                errors.append(f"{i}: {exc!r}")
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(vols))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        burst_s = time.perf_counter() - t1
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"micro-batched requests failed: {errors}")
+        local, _ = load_model_from_ckpt(ckpt, dev)
+        near = [_check_masks(r["mask"], segment_volume_2d(
+                    local, torch.from_numpy(v).to(dev), batch_size=per,
+                    tta="hflip"), f"micro-batched request {i}")
+                for i, (r, v) in enumerate(zip(replies, vols))]
+        before = morphology.LAUNCHES
+        kreply = _post(url + "/v1/segment_kspace", _npz_bytes(kspace=kpair))
+        kspace_launches = morphology.LAUNCHES - before
+        if (kspace_launches != 1
+                or kreply["mask"].shape != (SERVE_SLICES, 320, 320)):
+            raise AssertionError(f"/v1/segment_kspace launched open_close "
+                                 f"{kspace_launches} times")
+        metrics = _metricsz(url)
+    finally:
+        _stop_server(server, thread)
+    if (metrics["serve_requests_total"] != len(vols) + 1
+            or metrics["serve_errors_total"] != 0):
+        raise AssertionError(f"/metricsz: {metrics}")
+    return {"requests": len(vols), "slices_per_request": [
+                int(v.shape[0]) for v in vols],
+            "burst_s": burst_s, "mask_pixels": int(sum(v.size for v in vols)),
+            "near_threshold_and_differing_pixels": near,
+            "kspace_launches": kspace_launches, "metricsz": metrics}
+
+
+def unetpp_full_width(dev: torch.device, src: SliceStore, tmp: str) -> dict:
+    """UNet++ (resnet34, decoder 256-128-64-32-16, 320^2, one class): eval
+    logits card vs CPU (TF32 off), b8 bf16 train slices/s, and one
+    checkpoint served back over /v1/segment."""
+    model = _train_model(11, "unetpp").eval()
+    x = torch.randn((UNETPP_BATCH, 1, 320, 320),
+                    generator=torch.Generator().manual_seed(5))
+    flags = _precision_flags()
+    _set_precision_flags({"cudnn_allow_tf32": False,
+                          "matmul_allow_tf32": False,
+                          "cudnn_deterministic": True})
+    try:
+        with torch.inference_mode():
+            want = model(x)
+            card = copy.deepcopy(model).to(dev)
+            got = card(x.to(dev)).cpu()
+    finally:
+        _set_precision_flags(flags)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or err > LOGIT_RTOL * scale:
+        raise AssertionError(f"UNet++ card logits differ from CPU by {err} "
+                             f"(max |logit| {scale})")
+    del card
+    torch.cuda.empty_cache()
+    _set_precision_flags({"cudnn_allow_tf32": False,
+                          "matmul_allow_tf32": False,
+                          "cudnn_deterministic": False})
+    try:
+        speed = train_throughput(dev, src, 8, True, model="unetpp")
+    finally:
+        _set_precision_flags(flags)
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(tmp, "unetpp.ckpt")
+    save_best(ckpt, model.state_dict(),
+              {"model": "unetpp", "encoder": "resnet34", "k": 1,
+               "classes": 1, "imagenet_norm": False})
+    vol = src.images[:SERVE_SLICES]
+    server, thread, url = _start_server(ckpt, dev)
+    try:
+        reply = _post(url + "/v1/segment", _npz_bytes(img=vol))
+        local, _ = load_model_from_ckpt(ckpt, dev)
+        near = _check_masks(reply["mask"], segment_volume_2d(
+            local, torch.from_numpy(vol).to(dev), batch_size=16),
+            "UNet++ request")
+    finally:
+        _stop_server(server, thread)
+    return {"model": "unetpp/resnet34", "decoder": [256, 128, 64, 32, 16],
+            "logits_batch": [UNETPP_BATCH, 1, 320, 320],
+            "logits_max_abs_err": err, "logits_max_abs": scale,
+            "tol": f"{LOGIT_RTOL} * max|logit|", "train_b8_bf16": speed,
+            "served_slices": int(vol.shape[0]),
+            "served_near_threshold_and_differing_pixels": near}
+
+
+def run_report(tmp: str) -> dict:
+    run = os.path.join(tmp, "run")
+    if exporter.main(["--run-dir", run]) != 0:
+        raise AssertionError("the report exporter failed")
+    with open(os.path.join(run, "report_metrics.json"),
+              encoding="utf-8") as f:
+        metrics = json.load(f)
+    size = os.path.getsize(os.path.join(run, "report.html"))
+    if metrics["epochs"] != 2 or size < 1000:
+        raise AssertionError(f"report: {metrics}, {size} bytes")
+    return {"report_html_bytes": size, "report_metrics": metrics}
+
+
+def phase_evaluate(model: torch.nn.Module, dev: torch.device,
+                   defaults: dict, tmp: str) -> int:
+    """Phase 7: returns open_close's launches on its path (the one
+    /v1/segment_kspace request), counted from 0 at its start."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    with open(os.path.join(tmp, "lists", "train.txt"),
+              encoding="utf-8") as f:
+        src = SliceStore.from_files(f.read().split())
+    morphology.LAUNCHES = 0
+    out = {"infer_cli": infer_cli(dev, tmp),
+           "evaluate_volume": evaluate_card_vs_cpu(dev, tmp),
+           "serve_tta_microbatched": serve_tta_microbatched(model, dev, tmp),
+           "unetpp": unetpp_full_width(dev, src, tmp),
+           "report": run_report(tmp)}
+    launches = morphology.LAUNCHES
+    _set_precision_flags(defaults)
+    emit({"phase": "evaluate", "seconds": time.perf_counter() - t0, **out,
+          "open_close_launches": launches})
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -850,8 +1203,14 @@ def main() -> int:
     row["launches"] = phase_serve(model, dev, defaults)
     if row["launches"] < 1:
         raise AssertionError("the main path launched open_close no time")
-    row["launches_by_path"] = {"serve": row["launches"],
-                               "train": phase_train(dev, defaults)}
+    with tempfile.TemporaryDirectory() as tmp:
+        row["launches_by_path"] = {
+            "serve": row["launches"], "train": phase_train(dev, defaults, tmp),
+            "evaluate_serve": phase_evaluate(model, dev, defaults, tmp)}
+    if row["launches_by_path"]["evaluate_serve"] != 1:
+        raise AssertionError("phase 7 launched open_close "
+                             f"{row['launches_by_path']['evaluate_serve']} "
+                             "times, not once")
     emit({"kernels": [row]})
     print(smi, flush=True)
     emit({"total_seconds": time.perf_counter() - t0})

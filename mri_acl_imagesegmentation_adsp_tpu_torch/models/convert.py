@@ -1,10 +1,16 @@
-"""Flax ``params`` / ``batch_stats`` trees of the JAX U-Net -> a torch
-``state_dict`` of :class:`~.unet2d.ResNetEncoderUNet`.
+"""Flax ``params`` / ``batch_stats`` trees of the JAX U-Net or UNet++ -> a
+torch ``state_dict`` of :class:`~.unet2d.ResNetEncoderUNet` or
+:class:`~.unet2d.UNetPlusPlus`.
 
 The inverse of the layout map in
 ``mri_acl_imagesegmentation_adsp_tpu/models/torch_import.py:95``
-(``convert_resnet_encoder``), extended to the decoder blocks and the
-top-level ``Conv_0`` head: conv kernels go HWIO -> OIHW, and BatchNorm's
+(``convert_resnet_encoder``), extended to the decoders. The U-Net's are
+``_DecoderBlock_{i}`` and a top-level ``Conv_0`` head. The UNet++ numbers
+its top-level ``Conv_{i}`` and ``BatchNorm_{i}`` in the order it calls them
+(``models/unet2d.py:395-416`` there): its nodes column by column, two convs
+and two BatchNorms each, then the tail's two and the head; its fused and
+plain lowerings share that tree. A tree with top-level BatchNorms is a
+UNet++. Conv kernels go HWIO -> OIHW, and BatchNorm's
 ``scale / bias`` + ``mean / var`` become ``weight / bias`` +
 ``running_mean / running_var``; the stats carry over unchanged, and the
 port's BatchNorm (``models/norm.py``) updates them as Flax's does.
@@ -20,6 +26,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from .unet2d import UNetPlusPlus
+
 # Flax module name inside a residual block -> torch attribute, by block kind
 _BLOCK_NAMES = {
     "_BasicBlock": {"Conv_0": "conv0", "BatchNorm_0": "bn0",
@@ -34,8 +42,23 @@ _DECODER_NAMES = {"Conv_0": "conv0", "BatchNorm_0": "bn0",
                   "Conv_1": "conv1", "BatchNorm_1": "bn1"}
 
 
-def _module_path(path: tuple) -> str:
+def _unetpp_names() -> Dict[str, str]:
+    """The UNet++'s top-level Flax names -> torch module prefixes."""
+    blocks = [f"nodes.x_{i}_{j}" for j, i in UNetPlusPlus.node_order()]
+    blocks.append("tail")
+    convs = [f"{b}.conv{n}" for b in blocks for n in (0, 1)] + ["head"]
+    bns = [f"{b}.bn{n}" for b in blocks for n in (0, 1)]
+    return {**{f"Conv_{i}": t for i, t in enumerate(convs)},
+            **{f"BatchNorm_{i}": t for i, t in enumerate(bns)}}
+
+
+_UNETPP_NAMES = _unetpp_names()
+
+
+def _module_path(path: tuple, unetpp: bool = False) -> str:
     """Flax module path (tuple of names) -> torch module prefix."""
+    if unetpp and len(path) == 1 and path[0] in _UNETPP_NAMES:
+        return _UNETPP_NAMES[path[0]]
     if path == ("Conv_0",):
         return "head"
     if path[0] == "ResNetEncoder_0":
@@ -48,7 +71,7 @@ def _module_path(path: tuple) -> str:
             return (f"encoder.blocks.{m.group(2)}."
                     f"{_BLOCK_NAMES[m.group(1)][path[2]]}")
     m = re.fullmatch(r"_DecoderBlock_(\d+)", path[0])
-    if m and len(path) == 2 and path[1] in _DECODER_NAMES:
+    if not unetpp and m and len(path) == 2 and path[1] in _DECODER_NAMES:
         return f"decoder.{m.group(1)}.{_DECODER_NAMES[path[1]]}"
     raise KeyError(f"Flax module {'/'.join(path)} has no torch counterpart")
 
@@ -66,7 +89,8 @@ def _leaves(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any]
                          ) -> Dict[str, torch.Tensor]:
-    """Carry the JAX ``ResNetEncoderUNet`` weights into a torch state_dict.
+    """Carry the JAX ``ResNetEncoderUNet`` or ``UNetPlusPlus`` weights into
+    a torch state_dict.
 
     ``params`` / ``batch_stats`` are the nested dicts of arrays (numpy or
     jax) from ``model.init`` or a checkpoint. Load the result with
@@ -74,10 +98,11 @@ def state_dict_from_flax(params: Mapping[str, Any],
     trees did not fill."""
     p_leaves = _leaves(params)
     s_leaves = _leaves(batch_stats)
+    unetpp = any(k.startswith("BatchNorm_") for k in params)
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in p_leaves.items():
         mod, leaf = path[:-1], path[-1]
-        prefix = _module_path(mod)
+        prefix = _module_path(mod, unetpp)
         is_bn = mod[-1].startswith("BatchNorm_")
         if not is_bn and leaf == "kernel":
             if arr.ndim != 4:
@@ -104,7 +129,7 @@ def state_dict_from_flax(params: Mapping[str, Any],
     used = {k.rsplit(".", 1)[0] for k in sd if k.endswith("running_mean")}
     for path in s_leaves:
         if (path[-1] not in ("mean", "var")
-                or _module_path(path[:-1]) not in used):
+                or _module_path(path[:-1], unetpp) not in used):
             raise KeyError(f"batch_stats leaf {'/'.join(path)} has no "
                            "matching BatchNorm params")
     return sd

@@ -3,7 +3,8 @@
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/models/unet2d.py``:
 ``_BasicBlock`` (:43-71), ``_Bottleneck`` (:74-103), ``ResNetEncoder``
 (:106-157), ``_DecoderBlock`` in its plain form (:213-226) and
-``ResNetEncoderUNet`` (:305-356). The JAX decoder's phase-space lowering
+``ResNetEncoderUNet`` (:305-356) and ``UNetPlusPlus`` in its plain form
+(``fused_decoder=False``, :360-466). The JAX decoders' phase-space lowering
 (``models/phaseconv.py``) is a TPU device equal in f32 to the plain form,
 so only the plain form is here.
 
@@ -130,24 +131,38 @@ class ResNetEncoder(nn.Module):
         return feats
 
 
-class _DecoderBlock(nn.Module):
-    """Nearest 2x upsample, concat ``[up(x), skip]``, twice conv3x3-BN-ReLU."""
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
-    def __init__(self, cin: int, cskip: int, features: int):
+
+class _ConvBlock(nn.Module):
+    """Twice conv3x3-BN-ReLU."""
+
+    def __init__(self, cin: int, features: int):
         super().__init__()
-        self.conv0 = _conv(cin + cskip, features, 3)
+        self.conv0 = _conv(cin, features, 3)
         self.bn0 = _bn(features)
         self.conv1 = _conv(features, features, 3)
         self.bn1 = _bn(features)
 
+    def forward(self, x):
+        x = F.relu(self.bn0(self.conv0(x)))
+        return F.relu(self.bn1(self.conv1(x)))
+
+
+class _DecoderBlock(_ConvBlock):
+    """Nearest 2x upsample, concat ``[up(x), skip]``, twice conv3x3-BN-ReLU."""
+
+    def __init__(self, cin: int, cskip: int, features: int):
+        super().__init__(cin + cskip, features)
+
     def forward(self, x, skip: Optional[torch.Tensor]):
-        x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        x = _up2(x)
         if skip is not None:
             # crop an odd-size mismatch (inputs padded to /32 avoid this)
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
             x = torch.cat([x, skip], dim=1)
-        x = F.relu(self.bn0(self.conv0(x)))
-        return F.relu(self.bn1(self.conv1(x)))
+        return super().forward(x)
 
 
 class ResNetEncoderUNet(nn.Module):
@@ -177,6 +192,55 @@ class ResNetEncoderUNet(nn.Module):
         y = feats[5]
         for block, skip in zip(self.decoder, skips):
             y = block(y, skip)
+        return self.head(y).float()
+
+
+class UNetPlusPlus(nn.Module):
+    """smp.UnetPlusPlus-equivalent: the nested dense-skip decoder (Zhou et
+    al. 2018) over the same ResNet encoder. NCHW in, float32 logits out.
+
+    Node ``X[i][j]`` (``nodes["x_{i}_{j}"]``) sits at encoder level ``i``
+    (``/2`` to ``/32``) and column ``j``: twice conv3x3-BN-ReLU over
+    ``concat(X[i][0..j-1], up2(X[i+1][j-1]))`` with ``decoder_channels``'
+    first four widths, shallow row last. The tail upsamples ``X[0][4]`` to
+    full resolution, runs twice conv3x3-BN-ReLU at ``decoder_channels[-1]``
+    and a conv3x3 head with bias. ``DEPTH`` columns, column by column, then
+    the tail: the order in which the JAX module numbers its ``Conv_i`` and
+    ``BatchNorm_i`` (``models/convert.py``)."""
+
+    DEPTH = 4
+
+    def __init__(self, encoder: str = "resnet34", in_ch: int = 1,
+                 classes: int = 1,
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+        super().__init__()
+        self.encoder = ResNetEncoder(encoder, in_ch)
+        d = self.DEPTH
+        row_ch = list(decoder_channels)[:d][::-1]     # shallow -> deep
+        ch = {(i, 0): c for i, c in enumerate(self.encoder.channels[1:])}
+        self.nodes = nn.ModuleDict()
+        for j, i in self.node_order():
+            cin = sum(ch[(i, m)] for m in range(j)) + ch[(i + 1, j - 1)]
+            self.nodes[f"x_{i}_{j}"] = _ConvBlock(cin, row_ch[i])
+            ch[(i, j)] = row_ch[i]
+        tail = decoder_channels[-1]
+        self.tail = _ConvBlock(ch[(0, d)], tail)
+        self.head = nn.Conv2d(tail, classes, 3, padding=1, bias=True)
+
+    @classmethod
+    def node_order(cls):
+        """``(j, i)`` of every node, column by column."""
+        return [(j, i) for j in range(1, cls.DEPTH + 1)
+                for i in range(cls.DEPTH + 1 - j)]
+
+    def forward(self, x):
+        feats = self.encoder(x.float())
+        grid = {(i, 0): f for i, f in enumerate(feats[1:])}
+        for j, i in self.node_order():
+            priors = [grid[(i, m)] for m in range(j)]
+            grid[(i, j)] = self.nodes[f"x_{i}_{j}"](
+                torch.cat(priors + [_up2(grid[(i + 1, j - 1)])], dim=1))
+        y = self.tail(_up2(grid[(0, self.DEPTH)]))
         return self.head(y).float()
 
 

@@ -3,7 +3,7 @@
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/metrics.py:16-42``:
 ``bin_dice_iou`` (batch-global over dims (0, 2, 3), eps 1e-7, mean over
 channels; the caller thresholds), ``dice_bin`` and ``iou_bin`` on one
-``(H, W)`` pair."""
+``(H, W)`` pair, or per slice of an ``(N, H, W)`` pair."""
 
 from __future__ import annotations
 
@@ -28,15 +28,18 @@ def bin_dice_iou(preds: torch.Tensor, masks: torch.Tensor,
 
 def dice_bin(pred: torch.Tensor, gt: torch.Tensor,
              eps: float = 1e-7) -> torch.Tensor:
-    """Dice of one ``(H, W)`` {0, 1} pair."""
+    """Dice of a {0, 1} pair over its last two axes."""
     p, g = pred.float(), gt.float()
-    return (2.0 * torch.sum(p * g) + eps) / (torch.sum(p) + torch.sum(g)
-                                             + eps)
+    hw = (-2, -1)
+    return (2.0 * torch.sum(p * g, hw) + eps) / (
+        torch.sum(p, hw) + torch.sum(g, hw) + eps)
 
 
 def iou_bin(pred: torch.Tensor, gt: torch.Tensor,
             eps: float = 1e-7) -> torch.Tensor:
-    """IoU of one ``(H, W)`` {0, 1} pair."""
+    """IoU of a {0, 1} pair over its last two axes."""
     p, g = pred.float(), gt.float()
-    inter = torch.sum(p * g)
-    return (inter + eps) / (torch.sum(p) + torch.sum(g) - inter + eps)
+    hw = (-2, -1)
+    inter = torch.sum(p * g, hw)
+    return (inter + eps) / (torch.sum(p, hw) + torch.sum(g, hw) - inter
+                            + eps)

@@ -3,7 +3,7 @@ run artifacts.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/trainer.py``:
 ``UNet2DArgs`` (:49-98) with the same fields and defaults, so a JAX run's
-``args.json`` replays unchanged, and ``UNet2DTrainer`` (:126-263, :395-432,
+``args.json`` replays unchanged, and ``UNet2DTrainer`` (:126-263, :395-460,
 :469-633):
 
 - ``args.json`` in the run directory; the train and val stores on the
@@ -15,7 +15,8 @@ Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/trainer.py``:
 - the best checkpoint by val Dice (one class) or -val_loss, in
   ``best.ckpt`` and ``best.ckpt.args.json``; samples at epoch 1 and every
   5th; ``history.json``, ``summary.json`` and, from the CSV logger,
-  ``history_epoch.csv``, ``history_step.csv`` and ``metrics.json``.
+  ``history_epoch.csv``, ``history_step.csv`` and ``metrics.json``;
+- ``test``: Dice and IoU of a checkpoint on the val store or a listed split.
 
 Randomness comes from ``args.seed``: the weights from a CPU generator, the
 permutations and the augmentation from two generators on the device.
@@ -30,7 +31,7 @@ import json
 import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -204,6 +205,23 @@ class UNet2DTrainer:
         np.savez_compressed(self.out_dir / "val_preds.npz",
                             probs=np.concatenate(probs, 0),
                             gts=np.concatenate(gts, 0))
+
+    def test(self, ckpt_path: Optional[str] = None,
+             list_txt: Optional[str] = None) -> Dict[str, float]:
+        """Dice and IoU in eval mode, after loading ``ckpt_path`` when given,
+        on the split listed in ``list_txt`` or else the val store; batches
+        of ``batch_size // 2`` as in validation."""
+        a = self.args
+        if ckpt_path:
+            self.model.load_state_dict(ckpt_lib.load_best(ckpt_path))
+        store = self.val_store
+        if list_txt:
+            dt = (torch.bfloat16 if a.store_dtype == "bfloat16"
+                  else torch.float32)
+            store = SliceStore.from_list(list_txt, workers=a.workers
+                                         ).to_device(a.k, dt, self.device)
+        _, dice, iou = self.engine.validate(store, max(1, a.batch_size // 2))
+        return {"dice": dice, "iou": iou}
 
     def run(self) -> Dict[str, Any]:
         a = self.args

@@ -19,3 +19,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def f32_on_card(dev: torch.device) -> None:
+    """On a card, run f32 convolutions and matmuls in f32 from here on;
+    torch's defaults would run them in TF32. Serving and batch inference
+    call it, so that their results are the CPU's up to rounding."""
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel against its plain version, and the training path
-against the CPU, on the card.
+"""The port's CUDA kernel against its plain version, and the training and
+evaluation paths against the CPU, on the card.
 
 Run on a machine with an NVIDIA card and nvcc (``--noconftest``: that
 machine has no JAX, which tests/conftest.py imports):
@@ -154,3 +154,52 @@ def test_train_step_on_the_card_matches_the_cpu(card, tmp_path):
     finally:
         chip_smoke._set_precision_flags(flags)
     assert out["loss_rel_err"] <= chip_smoke.STEP_LOSS_RTOL
+
+
+def test_evaluate_volume_on_the_card_matches_the_cpu(card):
+    """evaluate_volume at 8 x 320 x 320 with chip_smoke.py phase 7's
+    tolerances: the exact EDT bit-equal, per-slice Dice / IoU / HD95 / ASSD
+    within 1e-6 relative, the volume means within 1e-6."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
+        evaluate_volume, slice_metrics)
+    from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
+    yy, xx = np.mgrid[:320, :320]
+    gt = np.stack([(yy - 160 - 4 * i) ** 2 + (xx - 150) ** 2 < 90 ** 2
+                   for i in range(8)]).astype(np.uint8)
+    pred = np.zeros_like(gt)
+    pred[..., 3:] = gt[..., :-3]
+    pred[:, 100:140, 100:160] = 0       # a hole: HD95 above 0
+    pt, gtt = torch.from_numpy(pred), torch.from_numpy(gt)
+    assert torch.equal(edt.edt(gtt.to(card) == 0).cpu(), edt.edt(gtt == 0))
+    got = slice_metrics(pt.to(card), gtt.to(card)).cpu().numpy()
+    want = slice_metrics(pt, gtt).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert (want[:, 2:] > 0).all()
+    card_means = evaluate_volume(pt.to(card), gtt.to(card))
+    assert card_means == pytest.approx(evaluate_volume(pt, gtt), rel=1e-6)
+
+
+def test_unetpp_logits_on_the_card_match_the_cpu(card):
+    """UNet++ (resnet34, the reference decoder) at 2 x 1 x 128 x 128 with
+    TF32 off: logits within 1e-3 of max |logit| (chip_smoke.LOGIT_RTOL)."""
+    import copy
+    from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import (
+        build_unet)
+    from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
+        init_weights)
+    model = init_weights(build_unet("unetpp", "resnet34"),
+                         torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 1, 128, 128, generator=torch.Generator().manual_seed(1))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = model(x)
+            got = copy.deepcopy(model).to(card)(x.to(card)).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -158,10 +158,14 @@ def test_segment_volume_2d_matches_jax(rng):
         segment.segment_volume_2d(tm, torch.from_numpy(vol), k=2)
 
 
-def test_build_unet_refuses_what_is_not_ported():
+def test_build_unet_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError):
-        build_unet("unetpp")
+        build_unet("fpn")
     with pytest.raises(ValueError):
         build_unet("unet", "resnet101")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):        # a download, as in the JAX factory
         build_unet("unet", "resnet34", encoder_weights="imagenet")
+    weights = tmp_path / "resnet34.pt"
+    torch.save({}, weights)
+    with pytest.raises(NotImplementedError):
+        build_unet("unet", "resnet34", encoder_weights=str(weights))

@@ -1,10 +1,15 @@
 """The PyTorch serving daemon on the CPU (port 0), held against the JAX
 daemon's ``_ModelRunner`` on the same weights: a random JAX ResNet18 U-Net,
 saved in each package's own checkpoint format (the port's through
-``state_dict_from_flax``)."""
+``state_dict_from_flax``). A second daemon serves with ``--tta hflip`` and
+``--microbatch-window-ms``: its answers to concurrent requests are held
+against sequential serving and the JAX runner, and its ``/metricsz``
+counts against the requests sent."""
 import io
 import json
+import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from types import SimpleNamespace
@@ -29,7 +34,8 @@ ARGS = {"model": "unet", "encoder": "resnet18", "k": 1, "classes": 1,
 
 
 @pytest.fixture(scope="module")
-def served(tmp_path_factory):
+def ckpts(tmp_path_factory):
+    """One random JAX U-Net in both packages' checkpoint formats."""
     tmp = tmp_path_factory.mktemp("serve")
     model = jax_build("unet", "resnet18", "none", in_ch=1, classes=1)
     v = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 1)),
@@ -39,20 +45,36 @@ def served(tmp_path_factory):
     jax_path, port_path = str(tmp / "jax.ckpt"), str(tmp / "port.ckpt")
     jax_ckpt.save_best(jax_path, params, stats, ARGS)
     checkpoint.save_best(port_path, state_dict_from_flax(params, stats), ARGS)
+    return jax_path, port_path
+
+
+def _start(port_path, **extra):
     server = serve.create_server(SimpleNamespace(
         ckpt=port_path, host="127.0.0.1", port=0, batch_size=4,
-        pre_out_size="32,32", warmup_shape="2,32,32", device="cpu"))
+        pre_out_size="32,32", warmup_shape="2,32,32", device="cpu", **extra))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
+    return server, thread
+
+
+def _stop(server, thread):
+    server.shutdown()
+    server.server_close()
+    server.RequestHandlerClass.runner.close()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def served(ckpts):
+    jax_path, port_path = ckpts
+    server, thread = _start(port_path)
     jax_runner = jax_serve._build_runner(SimpleNamespace(
         qtree=None, ckpt=jax_path, batch_size=4, pre_out_size="32,32"))
     try:
         yield "http://127.0.0.1:%d" % server.server_address[1], jax_runner
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    assert not thread.is_alive()
+        _stop(server, thread)
 
 
 def _post(url, **arrays):
@@ -66,6 +88,7 @@ def _post(url, **arrays):
 def _status(url, **arrays):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(url, **arrays)
+    e.value.close()
     return e.value.code
 
 
@@ -127,9 +150,7 @@ def test_bad_requests(served):
     assert _status(url + "/v1/classify", x=pair) == 404
 
 
-@pytest.mark.parametrize("flag", [["--tta", "hflip"], ["--qtree", "q.npz"],
-                                  ["--microbatch-window-ms", "5"],
-                                  ["--task", "recon"],
+@pytest.mark.parametrize("flag", [["--qtree", "q.npz"], ["--task", "recon"],
                                   ["--data-parallel", "2"]])
 def test_main_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -140,3 +161,158 @@ def test_main_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert flag[0] in "".join(capsys.readouterr().out.split())
+
+
+def _metricsz(url):
+    with urllib.request.urlopen(url + "/metricsz", timeout=30) as r:
+        assert r.headers["Content-Type"].startswith("text/plain")
+        text = r.read().decode()
+    return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+            if not ln.startswith("#")}
+
+
+def _volumes():
+    rng = np.random.default_rng(8)
+    return ([rng.standard_normal((s, 32, 32)).astype(np.float32)
+             for s in (3, 5, 2, 4)]
+            + [rng.standard_normal((3, 1, 32, 32)).astype(np.float32),
+               rng.standard_normal((2, 64, 32)).astype(np.float32)])
+
+
+def test_microbatched_tta_serving_matches_sequential(ckpts):
+    """Six concurrent /v1/segment requests (two shapes, masks and
+    probabilities) and one poisoned request (0 slices) to a daemon with
+    --tta hflip --microbatch-window-ms 50: each answer equals sequential
+    serving of the same model (probabilities within 1e-5; masks equal
+    except where the sequential probability lies within 1e-5 of 0.5) and
+    the JAX runner with --tta hflip (1e-4); only the poisoned request
+    fails, and /metricsz counts what was served."""
+    jax_path, port_path = ckpts
+    server, thread = _start(port_path, tta="hflip", microbatch_window_ms=50)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    seq = serve._build_runner(SimpleNamespace(
+        ckpt=port_path, batch_size=4, device="cpu", tta="hflip"))
+    jax_runner = jax_serve._build_runner(SimpleNamespace(
+        qtree=None, ckpt=jax_path, batch_size=4, pre_out_size="32,32",
+        tta="hflip"))
+    vols = _volumes()
+    results, codes = {}, {}
+
+    def client(i):
+        if i == len(vols):
+            codes[i] = _status(url + "/v1/segment",
+                               img=np.zeros((0, 32, 32), np.float32))
+            return
+        q = "?probs=1" if i % 2 else "?threshold=0.4"
+        results[i] = _post(url + "/v1/segment" + q, img=vols[i])
+
+    try:
+        assert _metricsz(url)["serve_requests_total"] == 0   # after warm-up
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(vols) + 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert codes == {len(vols): 400}
+        for i, vol in enumerate(vols):
+            want = seq.segment(vol, 0.5 if i % 2 else 0.4, True)
+            thr = 0.5 if i % 2 else 0.4
+            near = np.abs(want["probs"][:, 0] - thr) < 1e-5
+            np.testing.assert_array_equal(results[i]["mask"][~near],
+                                          want["mask"][~near])
+            if i % 2:
+                np.testing.assert_allclose(results[i]["probs"],
+                                           want["probs"], rtol=0, atol=1e-5)
+            else:
+                assert set(results[i]) == {"mask"}
+        np.testing.assert_allclose(
+            results[1]["probs"], jax_runner.segment(vols[1], 0.5, True)[
+                "probs"], rtol=1e-4, atol=1e-4)
+        m = _metricsz(url)
+        assert m["serve_requests_total"] == len(vols)
+        assert m["serve_slices_total"] == sum(v.shape[0] for v in vols)
+        assert m["serve_errors_total"] == 1
+        assert m["serve_busy_seconds_total"] > 0
+        assert m["serve_last_latency_seconds"] > 0
+    finally:
+        _stop(server, thread)
+
+
+class _FakeRunner:
+    """Records the groups a micro-batcher hands it; a volume of NaNs
+    poisons its group."""
+
+    def __init__(self):
+        self.groups = []
+
+    def segment_many(self, vols, thr=None):
+        self.groups.append((len(vols), thr))
+        if any(np.isnan(v).any() for v in vols):
+            raise RuntimeError("poisoned")
+        return [v * 2 if thr is None else (v > thr).astype(np.uint8)
+                for v in vols]
+
+
+def test_microbatcher_groups_by_shape_and_mode_and_retries():
+    runner = _FakeRunner()
+    batcher = serve._MicroBatcher(runner, window_ms=300)
+    vols = [np.full((2, 4, 4), i, np.float32) for i in range(4)]
+    vols.append(np.full((1, 8, 4), 5, np.float32))
+    vols.append(np.full((2, 4, 4), np.nan, np.float32))
+    thrs = [None, None, 1.5, 1.5, None, None]
+    out, err = {}, {}
+
+    def client(i):
+        try:
+            out[i] = batcher.submit(vols[i], thrs[i])
+        except RuntimeError as e:
+            err[i] = str(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(vols))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        batcher.close()
+    assert err == {5: "poisoned"}
+    for i in range(5):
+        want = vols[i] * 2 if thrs[i] is None else (vols[i] > thrs[i])
+        np.testing.assert_array_equal(out[i], want.astype(out[i].dtype))
+    # one window: (4,4)/probs with the poisoned volume, its three volumes
+    # retried one by one, (4,4)/1.5 and (8,4)/probs
+    assert sorted(runner.groups) == [(1, None)] * 4 + [(2, 1.5), (3, None)]
+    with pytest.raises(RuntimeError):
+        batcher.submit(vols[0])                      # closed
+
+
+def test_runner_counters_hold_under_contention():
+    """Sixteen threads record 200 requests each with a short switch
+    interval; the counters lose none."""
+    runner = serve._ModelRunner(lambda x: x, 1, 1, "test", 4, device="cpu")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            runner._record(time.perf_counter(), 3) for _ in range(200)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert runner.requests == 3200 and runner.slices == 9600
+
+
+def test_main_accepts_tta_and_microbatching(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--help"])
+    text = "".join(capsys.readouterr().out.split())
+    assert "--tta{none,hflip}" in text and "--microbatch-window-ms" in text
