@@ -37,9 +37,11 @@ Phases, each printing one JSON line with its seconds:
      evaluate_volume at 35x320x320 card vs CPU (the exact EDT bit-equal,
      HD95 / ASSD against the CPU and a scipy oracle of the reference's
      medimetrics, the no-zero sentinel) and its time per volume; a daemon
-     with --tta hflip --microbatch-window-ms 5 answering eight concurrent
-     /v1/segment requests and one /v1/segment_kspace request (one
-     open/close launch), with its /metricsz counts; UNet++ at full width
+     with --tta hflip --microbatch-window-ms 5 at its default batch of 16
+     answering eight concurrent 6-slice /v1/segment requests (so a batch
+     mixes requests) and one /v1/segment_kspace request (one open/close
+     launch), with its /metricsz counts, then that burst timed five times
+     each on it and on the same daemon without the window; UNet++ at full width
      (logits card vs CPU, b8 bf16 train slices/s, a checkpoint served
      back); the run report of phase 6's run directory.
 Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
@@ -79,8 +81,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
-    SURFACE_CHUNK, evaluate_volume, segment_volume_2d, slice_metrics,
-    threshold_probs)
+    SURFACE_CHUNK, evaluate_volume, segment_volume_2d, segment_volumes_2d,
+    slice_metrics, threshold_probs)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
@@ -137,6 +139,9 @@ EVAL_TIMED_RUNS = 20
 SUMMARY_KEYS = {"volume", "num_slices", "pred_path", "dice", "iou", "hd95",
                 "assd"}
 MICROBATCH_REQUESTS = 8    # concurrent /v1/segment requests in phase 7
+MICROBATCH_SLICES = 6      # a request's slices, fewer than a batch of 16
+MICROBATCH_WINDOW_MS = 5.0
+MICROBATCH_BURSTS = 5      # timed bursts per window, window off and on
 NEAR_THRESHOLD = 1e-5      # mask pixels this close to 0.5 may differ
 UNETPP_BATCH = 4           # logits card vs CPU
 
@@ -879,11 +884,15 @@ def infer_cli(dev: torch.device, tmp: str) -> dict:
     out = {}
     for name, extra in (("plain", []), ("tta_hflip", ["--tta", "hflip"])):
         out_dir = os.path.join(tmp, "preds_" + name)
+        flags = _precision_flags()
         t1 = time.perf_counter()
         rc = infer.main(["--ckpt", os.path.join(tmp, "run", "best.ckpt"),
                          "--list", lst, "--out-dir", out_dir, "--metrics",
                          "--device", str(dev), *extra])
         secs = time.perf_counter() - t1
+        if _precision_flags() != flags:
+            raise AssertionError(f"infer {name} left the precision flags "
+                                 f"changed: {_precision_flags()}")
         with open(os.path.join(out_dir, "summary.json"),
                   encoding="utf-8") as f:
             summary = json.load(f)
@@ -1029,13 +1038,46 @@ def _metricsz(url: str) -> dict:
             if not ln.startswith("#")}
 
 
+def _burst(url: str, vols: list) -> tuple:
+    """One concurrent /v1/segment request per volume: ``(wall seconds of
+    the burst, each request's seconds, the replies)``."""
+    replies, latency, errors = [None] * len(vols), [0.0] * len(vols), []
+    bodies = [_npz_bytes(img=v) for v in vols]
+
+    def client(i):
+        t = time.perf_counter()
+        try:
+            replies[i] = _post(url + "/v1/segment", bodies[i])
+        except Exception as exc:            # noqa: BLE001
+            errors.append(f"{i}: {exc!r}")
+        latency[i] = time.perf_counter() - t
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(vols))]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    burst_s = time.perf_counter() - t1
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errors}")
+    return burst_s, latency, replies
+
+
 def serve_tta_microbatched(model: torch.nn.Module, dev: torch.device,
                            tmp: str) -> dict:
-    """Phase 4's model behind a daemon with --tta hflip and a 5 ms
-    micro-batching window: MICROBATCH_REQUESTS concurrent /v1/segment
-    requests of phase 6's packed slices, then one /v1/segment_kspace. The
-    daemon's batch is one request's slice count, so a group's batches hold
-    the same slices as the per-request batches they are checked against."""
+    """Phase 4's model behind a daemon with --tta hflip, its default batch
+    of 16 and a 5 ms micro-batching window: MICROBATCH_REQUESTS concurrent
+    /v1/segment requests of MICROBATCH_SLICES packed slices each, so that
+    a group's batches mix slices of several requests, then one
+    /v1/segment_kspace and the /metricsz counts. Then the same daemon
+    without the window beside it, and bursts timed on each in turn.
+
+    On the card a slice's f32 logits move with the size of the batch it
+    runs in (cuDNN picks its algorithm by shape), so the grouped masks are
+    held to in-process ``segment_volumes_2d`` over the groups that the
+    dispatcher formed, recorded as it runs; how far they lie from the
+    per-request masks is reported."""
     ckpt = os.path.join(tmp, "phase4.ckpt")
     save_best(ckpt, model.state_dict(),
               {"model": "unet", "encoder": "resnet34", "k": 1, "classes": 1,
@@ -1044,39 +1086,47 @@ def serve_tta_microbatched(model: torch.nn.Module, dev: torch.device,
     for i in range(TRAIN_VOLUMES):
         with np.load(os.path.join(tmp, "art", f"vol{i}", "volume.npz")) as z:
             img = z["img"][:, 0]
-        half = img.shape[0] // 2
-        vols += [img[:half], img[half:]]
+        vols += [img[:MICROBATCH_SLICES], img[-MICROBATCH_SLICES:]]
     vols = vols[:MICROBATCH_REQUESTS]
     kpair = synthetic_kspace_pairs(seed=300, s=SERVE_SLICES, h=VOLUME[1],
                                    w=VOLUME[2])
-    per = vols[0].shape[0]
+    warm = f"{MICROBATCH_SLICES},320,320"
     server, thread, url = _start_server(
-        ckpt, dev, batch_size=per, warmup_shape=f"{per},320,320",
-        tta="hflip", microbatch_window_ms=5.0)
-    try:
-        replies, errors = [None] * len(vols), []
+        ckpt, dev, warmup_shape=warm, tta="hflip",
+        microbatch_window_ms=MICROBATCH_WINDOW_MS)
+    runner = server.RequestHandlerClass.runner
+    groups = []
+    served_many = runner.segment_many
 
-        def client(i):
-            try:
-                replies[i] = _post(url + "/v1/segment", _npz_bytes(
-                    img=vols[i]))
-            except Exception as exc:        # noqa: BLE001
-                errors.append(f"{i}: {exc!r}")
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(vols))]
-        t1 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=120)
-        burst_s = time.perf_counter() - t1
-        if errors or any(t.is_alive() for t in threads):
-            raise AssertionError(f"micro-batched requests failed: {errors}")
+    def recording(group, thr=None):
+        groups.append([np.array(v) for v in group])
+        return served_many(group, thr)
+    try:
+        runner.segment_many = recording
+        try:
+            burst_s, _, replies = _burst(url, vols)
+        finally:
+            del runner.segment_many
         local, _ = load_model_from_ckpt(ckpt, dev)
-        near = [_check_masks(r["mask"], segment_volume_2d(
-                    local, torch.from_numpy(v).to(dev), batch_size=per,
-                    tta="hflip"), f"micro-batched request {i}")
-                for i, (r, v) in enumerate(zip(replies, vols))]
+        grouped = [None] * len(vols)
+        for group in groups:
+            outs = segment_volumes_2d(
+                local, [torch.from_numpy(v).to(dev) for v in group],
+                tta="hflip")
+            for v, p in zip(group, outs):
+                i = next(j for j, w in enumerate(vols)
+                         if np.array_equal(v, w))
+                if grouped[i] is not None:
+                    raise AssertionError(f"request {i} ran in two groups")
+                grouped[i] = p
+        if any(p is None for p in grouped):
+            raise AssertionError("a request ran in no group")
+        near = [_check_masks(r["mask"], p, f"micro-batched request {i}")
+                for i, (r, p) in enumerate(zip(replies, grouped))]
+        # per volume, as a request without micro-batching runs it
+        probs = [segment_volume_2d(local, torch.from_numpy(v).to(dev),
+                                   tta="hflip") for v in vols]
+        vs_request = _mask_margin(replies, probs)
         before = morphology.LAUNCHES
         kreply = _post(url + "/v1/segment_kspace", _npz_bytes(kspace=kpair))
         kspace_launches = morphology.LAUNCHES - before
@@ -1085,16 +1135,66 @@ def serve_tta_microbatched(model: torch.nn.Module, dev: torch.device,
             raise AssertionError(f"/v1/segment_kspace launched open_close "
                                  f"{kspace_launches} times")
         metrics = _metricsz(url)
+        if (metrics["serve_requests_total"] != len(vols) + 1
+                or metrics["serve_errors_total"] != 0):
+            raise AssertionError(f"/metricsz: {metrics}")
+        timing = time_microbatching(ckpt, dev, url, vols, probs)
     finally:
         _stop_server(server, thread)
-    if (metrics["serve_requests_total"] != len(vols) + 1
-            or metrics["serve_errors_total"] != 0):
-        raise AssertionError(f"/metricsz: {metrics}")
     return {"requests": len(vols), "slices_per_request": [
-                int(v.shape[0]) for v in vols],
-            "burst_s": burst_s, "mask_pixels": int(sum(v.size for v in vols)),
+                int(v.shape[0]) for v in vols], "batch_size": 16,
+            "group_sizes": [len(g) for g in groups],
+            "first_burst_s": burst_s,
+            "mask_pixels": int(sum(v.size for v in vols)),
             "near_threshold_and_differing_pixels": near,
-            "kspace_launches": kspace_launches, "metricsz": metrics}
+            "vs_per_request": vs_request,
+            "kspace_launches": kspace_launches, "metricsz": metrics,
+            "timed": timing}
+
+
+def _mask_margin(replies: list, probs: list) -> dict:
+    """Served masks against per-request probabilities: the pixels that
+    differ, and the largest distance from 0.5 of the probability at one."""
+    differ, margin = 0, 0.0
+    for r, p in zip(replies, probs):
+        p = p[:, 0].cpu().numpy()
+        bad = r["mask"] != (p > 0.5)
+        differ += int(bad.sum())
+        if bad.any():
+            margin = max(margin, float(np.abs(p - 0.5)[bad].max()))
+    return {"differ": differ, "max_abs_p_minus_half": margin}
+
+
+def time_microbatching(ckpt: str, dev: torch.device, url_on: str,
+                       vols: list, probs: list) -> dict:
+    """The burst on a daemon without the window (each request its own
+    batch, queued on the device lock) and on the one with it, in turn,
+    MICROBATCH_BURSTS times each after one untimed burst on the new
+    daemon, whose masks are checked too."""
+    server, thread, url_off = _start_server(
+        ckpt, dev, warmup_shape=f"{MICROBATCH_SLICES},320,320", tta="hflip")
+    out = {"window_ms": {"off": 0.0, "on": MICROBATCH_WINDOW_MS},
+           "burst_s": {"off": [], "on": []},
+           "mean_request_s": {"off": [], "on": []},
+           "max_request_s": {"off": [], "on": []}}
+    try:
+        _, _, replies = _burst(url_off, vols)
+        out["unbatched_near_threshold_and_differing_pixels"] = [
+            _check_masks(r["mask"], p, f"request {i} without the window")
+            for i, (r, p) in enumerate(zip(replies, probs))]
+        for _ in range(MICROBATCH_BURSTS):
+            for key, url in (("off", url_off), ("on", url_on)):
+                burst_s, lat, _ = _burst(url, vols)
+                out["burst_s"][key].append(burst_s)
+                out["mean_request_s"][key].append(float(np.mean(lat)))
+                out["max_request_s"][key].append(max(lat))
+    finally:
+        # the daemons put the precision flags back in the reverse order of
+        # their start
+        _stop_server(server, thread)
+    out["median_burst_s"] = {k: float(np.median(v))
+                             for k, v in out["burst_s"].items()}
+    return out
 
 
 def unetpp_full_width(dev: torch.device, src: SliceStore, tmp: str) -> dict:
@@ -1181,7 +1281,9 @@ def phase_evaluate(model: torch.nn.Module, dev: torch.device,
            "unetpp": unetpp_full_width(dev, src, tmp),
            "report": run_report(tmp)}
     launches = morphology.LAUNCHES
-    _set_precision_flags(defaults)
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 7 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
     emit({"phase": "evaluate", "seconds": time.perf_counter() - t0, **out,
           "open_close_launches": launches})
     return launches

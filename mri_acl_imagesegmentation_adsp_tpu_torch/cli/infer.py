@@ -76,9 +76,9 @@ def main(argv=None) -> int:
     def apply_fn(x):
         return model(norm(x))
 
-    f32_on_card(dev)
-    return _run(args, apply_fn, int(margs.get("k", 1)),
-                int(margs.get("classes", 1)), dev)
+    with f32_on_card(dev):
+        return _run(args, apply_fn, int(margs.get("k", 1)),
+                    int(margs.get("classes", 1)), dev)
 
 
 def _run(args, apply_fn, k: int, classes: int, dev: torch.device) -> int:

@@ -40,6 +40,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import threading
@@ -176,6 +177,7 @@ class _ModelRunner:
         self._lock = threading.Lock()        # serializes the device
         self.stats_lock = threading.Lock()   # guards the counters only
         self._pres: dict = {}                # preprocessor per keep band
+        self._on_close = contextlib.ExitStack()  # undone by close()
         # /v1/segment requests coalesce on a dispatcher thread when the
         # window is above 0, instead of queueing on the lock
         self.batcher = (_MicroBatcher(self, microbatch_window_ms)
@@ -184,6 +186,7 @@ class _ModelRunner:
     def close(self) -> None:
         if self.batcher is not None:
             self.batcher.close()
+        self._on_close.close()
 
     def count_error(self) -> None:
         with self.stats_lock:
@@ -227,9 +230,9 @@ class _ModelRunner:
                else self.segment_many([vol], thr)[0])
         if not want_probs:
             return {"mask": out}
-        mask = (out[:, 0] > threshold if self.classes == 1
-                else out.argmax(axis=1))
-        return {"mask": mask.astype(np.uint8), "probs": out}
+        return {"mask": threshold_probs(torch.from_numpy(out), self.classes,
+                                        threshold).numpy(),
+                "probs": out}
 
     def segment_kspace(self, kpair: np.ndarray, threshold: float,
                        want_probs: bool, slice_keep=(0.0, 1.0)) -> dict:
@@ -384,9 +387,10 @@ def create_server(args) -> ThreadingHTTPServer:
     ``main`` so a caller can drive it in-process.
 
     The daemon serves f32: on a card it turns TF32 off for the process's
-    convolutions and matmuls (``utils/device.py:f32_on_card``)."""
+    convolutions and matmuls (``utils/device.py:f32_on_card``) until its
+    runner is closed, which puts the caller's flags back."""
     runner = _build_runner(args)
-    f32_on_card(runner.device)
+    runner._on_close.enter_context(f32_on_card(runner.device))
     if runner.device.type == "cuda":
         morphology.load_library()    # build before the first request
     if getattr(args, "warmup_shape", ""):

@@ -114,23 +114,21 @@ def _assd_from(sorted_vals: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, mean, 0.0)
 
 
+def hd95_assd(pred: torch.Tensor, gt: torch.Tensor,
+              spacing: Sequence[float] = _UNIT
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hd95, assd)`` per slice, from one pair of transforms."""
+    d, n = surface_distances(pred, gt, spacing)
+    return _masked_percentile(d, n, 95.0), _assd_from(d, n)
+
+
 def hd95(pred: torch.Tensor, gt: torch.Tensor,
          spacing: Sequence[float] = _UNIT) -> torch.Tensor:
     """95th-percentile symmetric surface distance, per slice."""
-    d, n = surface_distances(pred, gt, spacing)
-    return _masked_percentile(d, n, 95.0)
+    return hd95_assd(pred, gt, spacing)[0]
 
 
 def assd(pred: torch.Tensor, gt: torch.Tensor,
          spacing: Sequence[float] = _UNIT) -> torch.Tensor:
     """Average symmetric surface distance, per slice."""
-    d, n = surface_distances(pred, gt, spacing)
-    return _assd_from(d, n)
-
-
-def hd95_assd(pred: torch.Tensor, gt: torch.Tensor,
-              spacing: Sequence[float] = _UNIT
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(hd95, assd)`` from one pair of transforms."""
-    d, n = surface_distances(pred, gt, spacing)
-    return _masked_percentile(d, n, 95.0), _assd_from(d, n)
+    return hd95_assd(pred, gt, spacing)[1]

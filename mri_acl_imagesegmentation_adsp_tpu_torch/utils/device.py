@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -21,10 +24,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def f32_on_card(dev: torch.device) -> None:
-    """On a card, run f32 convolutions and matmuls in f32 from here on;
+@contextlib.contextmanager
+def f32_on_card(dev: torch.device) -> Iterator[None]:
+    """On a card, run f32 convolutions and matmuls in f32 inside the block;
     torch's defaults would run them in TF32. Serving and batch inference
-    call it, so that their results are the CPU's up to rounding."""
+    use it, so that their results are the CPU's up to rounding. The two
+    flags are process-wide: on leaving the block they are put back as they
+    were found, so the caller's process keeps its own settings."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags

@@ -15,6 +15,7 @@ Tolerances, each stated where it is checked:
 - the report: ``report.html`` and ``report_metrics.json`` byte-equal.
 """
 import json
+from contextlib import nullcontext
 from pathlib import Path
 
 import jax
@@ -43,6 +44,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import (
     checkpoint, trainer)
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils.device import f32_on_card
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.png import write_png
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs)
@@ -250,6 +252,32 @@ def test_infer_cli_warns_for_multiclass(tmp_path, capsys):
     assert "dice" not in got[0]
     pred = np.load(tmp_path / "out" / "vol0" / "pred_mask.npy")
     assert pred.shape == (3, 32, 32) and pred.max() <= 2
+
+
+@pytest.mark.parametrize("device,fail", [("cuda", False), ("cuda", True),
+                                         ("cpu", False)])
+def test_f32_on_card_puts_the_flags_back(device, fail):
+    """Inside the block a card's f32 convolutions and matmuls leave TF32
+    (the flags are process-wide and can be set without a card); after it,
+    also after an error, the caller's flags are back. The CPU leaves them
+    alone."""
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    before = flags()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError) if fail else nullcontext():
+            with f32_on_card(torch.device(device)):
+                assert flags() == ((False, False) if device == "cuda"
+                                   else (True, True))
+                if fail:
+                    raise RuntimeError("inside the block")
+        assert flags() == (True, True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
 
 
 def test_trainer_test_matches_jax_trainer(tmp_path):

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mri_acl_imagesegmentation_adsp_tpu.cli import serve as jax_serve
 from mri_acl_imagesegmentation_adsp_tpu.models import build_unet as jax_build
@@ -309,6 +310,24 @@ def test_runner_counters_hold_under_contention():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert runner.requests == 3200 and runner.slices == 9600
+
+
+@pytest.mark.parametrize("classes", [1, 3])
+def test_runner_probs_request_masks_as_mask_only_request(classes):
+    """A request for probabilities gets the mask the mask-only request
+    gets: '>' threshold for one class, the argmax of three."""
+    runner = serve._ModelRunner(
+        lambda x: torch.cat([x, -x, 0.5 * x][:classes], dim=1), 1, classes,
+        "test", 4, device="cpu")
+    vol = np.random.default_rng(2).standard_normal((5, 8, 8)).astype(
+        np.float32)
+    both = runner.segment(vol, 0.3, True)
+    mask = runner.segment(vol, 0.3, False)["mask"]
+    assert both["mask"].dtype == np.uint8
+    np.testing.assert_array_equal(both["mask"], mask)
+    want = (both["probs"][:, 0] > 0.3 if classes == 1
+            else both["probs"].argmax(axis=1))
+    np.testing.assert_array_equal(both["mask"], want)
 
 
 def test_main_accepts_tta_and_microbatching(capsys):
