@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 The main path is the serving daemon's ``/v1/segment_kspace``: raw
-single-coil k-space -> iFFT magnitude -> percentile clip -> Otsu body mask
-(its disk(2) open/close in the CUDA kernel ``csrc/open_close.cu``) ->
-resize and z-score -> ResNet34 U-Net at full width (320x320 input, decoder
-256-128-64-32-16) -> mask. The weights are random, made from a seed.
+single-coil or multi-coil k-space -> iFFT magnitude (per coil, then RSS) ->
+percentile clip -> Otsu body mask (its disk(2) open/close in the CUDA kernel
+``csrc/open_close.cu``, its connected components in ``csrc/label_prop.cu``)
+-> resize and z-score -> ResNet34 U-Net at full width (320x320 input,
+decoder 256-128-64-32-16) -> mask. The weights are random, made from a
+seed.
 
 Phases, each printing one JSON line with its seconds:
   0  setup: watchdog, the card's name and power limit, TF32 off for the
      parity phases 2-4;
-  1  build the CUDA kernel with nvcc, with what ptxas says of it;
+  1  build the CUDA kernels with nvcc (one process a source, started
+     together), with what ptxas says of them;
   2  kernel vs its plain PyTorch version on the card, bit-equal at the
      kernel's word and band edges, three densities and misaligned starts;
      at a volume's (35, 640, 368) and a served request's (8, 640, 368)
@@ -23,8 +26,8 @@ Phases, each printing one JSON line with its seconds:
   4  the model's logits on a (16, 1, 320, 320) batch, card vs CPU;
   5  the server, started from torch's own precision flags as its command
      line starts it, answering three /v1/segment_kspace requests, each
-     checked against the in-process result and shown to launch the kernel
-     exactly once;
+     checked against the in-process result and shown to launch each mask
+     kernel (open_close, label_components) exactly once;
   6  train: pack four synthetic 35-slice volumes with the port's packer
      (one open/close launch each), train two epochs through the launcher
      at full width (batch 8, aug light, bf16 autocast and store, as the
@@ -43,7 +46,18 @@ Phases, each printing one JSON line with its seconds:
      launch), with its /metricsz counts, then that burst timed five times
      each on it and on the same daemon without the window; UNet++ at full width
      (logits card vs CPU, b8 bf16 train slices/s, a checkpoint served
-     back); the run report of phase 6's run directory.
+     back); the run report of phase 6's run directory;
+  8  the rest of preprocessing: label_components kernel vs its plain sweeps,
+     bit-equal at its edge cases (widths across its tiles, H = 1, a
+     checkerboard, a 640x368 serpentine of hundreds of sweeps, rings,
+     borders) and on phase 3's volume's masks before their components,
+     timed at a volume and a request; the probe's masked_max_prop
+     (``tools/probe_label_prop.py``) bit-equal and timed; a seeded
+     (35, 15, 640, 368, 2) multi-coil volume card vs CPU, its card time and
+     peak memory; N4 + NL-means on 4 of its slices card vs CPU, per-slice
+     N4 updates compared first; one (4, 15, 640, 368, 2) multi-coil
+     /v1/segment_kspace request against the in-process result, launching
+     each mask kernel once.
 Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any mismatch raises and the script exits
 non-zero; without a card it exits non-zero and prints no result, and a
@@ -65,6 +79,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -88,8 +103,13 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
-    _build, morphology)
+    _build, components, morphology)
+from mri_acl_imagesegmentation_adsp_tpu_torch.ops.maskops import (
+    open_closed_otsu_mask)
+from mri_acl_imagesegmentation_adsp_tpu_torch.ops.restoration import (
+    n4_bias_correction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
+from mri_acl_imagesegmentation_adsp_tpu_torch.tools import probe_label_prop
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -104,7 +124,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
     cuda_ms, host_us)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    synthetic_kspace_pairs)
+    component_masks, synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs)
 
 WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -144,10 +164,27 @@ MICROBATCH_WINDOW_MS = 5.0
 MICROBATCH_BURSTS = 5      # timed bursts per window, window off and on
 NEAR_THRESHOLD = 1e-5      # mask pixels this close to 0.5 may differ
 UNETPP_BATCH = 4           # logits card vs CPU
+COILS = 15                 # fastMRI knee multi-coil: 15 coils at 640x368
+MULTICOIL_REQUEST_SLICES = 4
+RESTORED_SLICES = 4        # N4 + NL-means card vs CPU on this many slices
+RESTORED_TOL = 1e-3        # their z-scored tensors, times 1 + max|t|
+KERNEL_SOURCES = ("open_close", "label_prop")
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_mask_launches() -> None:
+    """Every launch count of the body mask's kernels to 0."""
+    morphology.LAUNCHES = 0
+    components.reset_launches()
+
+
+def mask_launches() -> dict:
+    """The body mask's kernel launches since the last reset."""
+    return {"open_close": morphology.LAUNCHES,
+            "label_components": components.LAUNCHES["label_components"]}
 
 
 def open_close_bound_ms(shape) -> tuple:
@@ -218,23 +255,33 @@ def phase_setup() -> tuple:
     return smi, defaults
 
 
+def _ptxas(name: str) -> dict:
+    report = _build.ptxas_report(name)
+    return {"source": f"mri_acl_imagesegmentation_adsp_tpu_torch/csrc/"
+                      f"{name}.cu",
+            "ptxas": [{"registers": int(r), "spill_stores_bytes": int(st),
+                       "spill_loads_bytes": int(ld)}
+                      for st, ld, r in zip(
+                          re.findall(r"(\d+) bytes spill stores", report),
+                          re.findall(r"(\d+) bytes spill loads", report),
+                          re.findall(r"Used (\d+) registers", report))],
+            "ptxas_lines": [ln.strip() for ln in report.splitlines()
+                            if "registers" in ln or "spill" in ln
+                            or "Compiling" in ln]}
+
+
 def phase_build() -> None:
+    """One nvcc a source, all started together, then each library loaded
+    and bound by its wrapper."""
     t0 = time.perf_counter()
-    fresh = not _build.library_path("open_close").exists()
+    fresh = {n: not _build.library_path(n).exists() for n in KERNEL_SOURCES}
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for built in [pool.submit(_build.build, n) for n in KERNEL_SOURCES]:
+            built.result()
     morphology.load_library()
-    report = _build.ptxas_report("open_close")
-    kernels = [{"registers": int(r), "spill_stores_bytes": int(st),
-                "spill_loads_bytes": int(ld)}
-               for st, ld, r in zip(
-                   re.findall(r"(\d+) bytes spill stores", report),
-                   re.findall(r"(\d+) bytes spill loads", report),
-                   re.findall(r"Used (\d+) registers", report))]
+    components.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "source": "mri_acl_imagesegmentation_adsp_tpu_torch/csrc/"
-                    "open_close.cu", "nvcc": fresh,
-          "ptxas": kernels, "ptxas_lines": [
-              ln.strip() for ln in report.splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling" in ln]})
+          "nvcc": fresh, "kernels": [_ptxas(n) for n in KERNEL_SOURCES]})
 
 
 def edge_cases(rng) -> list:
@@ -381,13 +428,14 @@ def phase_preprocess(dev: torch.device, shape=VOLUME) -> None:
     pair = synthetic_kspace_pairs(seed=1, s=shape[0], h=shape[1], w=shape[2])
     kw = dict(out_size=(320, 320), slice_keep=(0.0, 1.0))
     pre = MRIKneePreprocessor(device=dev, **kw)
-    before = morphology.LAUNCHES
+    reset_mask_launches()
     t1 = time.perf_counter()
     got = pre.preprocess_volume_pairs(pair)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
-    if morphology.LAUNCHES <= before:
-        raise AssertionError("the preprocess chain did not launch open_close")
+    if mask_launches() != {"open_close": 1, "label_components": 1}:
+        raise AssertionError(f"the preprocess chain launched the mask "
+                             f"kernels {mask_launches()} times, not once each")
     t1 = time.perf_counter()
     pre.preprocess_volume_pairs(pair)
     torch.cuda.synchronize()
@@ -396,26 +444,34 @@ def phase_preprocess(dev: torch.device, shape=VOLUME) -> None:
     want = MRIKneePreprocessor(device="cpu", **kw).preprocess_volume_pairs(
         pair)
     cpu_s = time.perf_counter() - t1
+    emit({"phase": "preprocess", "seconds": time.perf_counter() - t0,
+          "shape": list(pair.shape), "card_first_s": first_s,
+          "card_warm_s": warm_s, "cpu_s": cpu_s,
+          **compare_packs(got, want, shape[0])})
+
+
+def compare_packs(got: dict, want: dict, slices: int,
+                  tol: float = TENSOR_TOL) -> dict:
+    """A card pack against the CPU's: body masks differ in at most
+    MASK_DIFF_MAX of their pixels, and on the slices whose masks agree the
+    z-scored tensors within ``tol * (1 + max|t|)``."""
     g_mask, w_mask = got["mask"].cpu(), want["mask"]
-    if g_mask.shape != (shape[0], 320, 320) or not bool(w_mask.any()):
+    if g_mask.shape != (slices, 320, 320) or not bool(w_mask.any()):
         raise AssertionError(f"unexpected mask {tuple(g_mask.shape)}")
     n_diff = int((g_mask != w_mask).sum())
     if n_diff > MASK_DIFF_MAX * w_mask.numel():
         raise AssertionError(f"body masks differ in {n_diff} pixels")
     same = (g_mask == w_mask).flatten(1).all(dim=1)
     g_t, w_t = got["tensor"].cpu(), want["tensor"]
-    if not bool(torch.isfinite(g_t).all()):
-        raise AssertionError("non-finite preprocessed tensor")
+    if not bool(torch.isfinite(g_t).all()) or not bool(same.any()):
+        raise AssertionError("non-finite tensor or no slice's masks agree")
     err = float((g_t[same] - w_t[same]).abs().max())
-    if err > TENSOR_TOL * (1.0 + float(w_t[same].abs().max())):
+    if err > tol * (1.0 + float(w_t[same].abs().max())):
         raise AssertionError(f"preprocessed tensor differs by {err}")
-    emit({"phase": "preprocess", "seconds": time.perf_counter() - t0,
-          "shape": list(pair.shape), "card_first_s": first_s,
-          "card_warm_s": warm_s, "cpu_s": cpu_s,
-          "mask_bit_equal": n_diff == 0, "mask_diff_pixels": n_diff,
-          "mask_pixels": int(w_mask.numel()),
-          "slices_with_equal_masks": int(same.sum()),
-          "tensor_max_abs_err": err, "tensor_tol": TENSOR_TOL})
+    return {"mask_bit_equal": n_diff == 0, "mask_diff_pixels": n_diff,
+            "mask_pixels": int(w_mask.numel()),
+            "slices_with_equal_masks": int(same.sum()),
+            "tensor_max_abs_err": err, "tensor_tol": tol}
 
 
 def phase_model(dev: torch.device) -> torch.nn.Module:
@@ -501,8 +557,9 @@ def _stop_server(server, thread) -> None:
 
 
 def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
-                shape=(SERVE_SLICES,) + VOLUME[1:]) -> int:
-    """The main path: returns open_close's launches during the requests.
+                shape=(SERVE_SLICES,) + VOLUME[1:]) -> dict:
+    """The main path: returns the mask kernels' launches during the
+    requests.
     It starts from torch's own precision flags, so the daemon runs with
     the settings that its command line gives it."""
     t0 = time.perf_counter()
@@ -530,17 +587,18 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
             runner = server.RequestHandlerClass.runner
             expected = [runner.segment_kspace(v, 0.5, False) for v in vols]
             latencies, in_lock = [], []
-            morphology.LAUNCHES = 0
+            reset_mask_launches()
             for i, (body, exp) in enumerate(zip(bodies, expected)):
-                before = morphology.LAUNCHES
+                before = mask_launches()
                 t1 = time.perf_counter()
                 out = _post(url + "/v1/segment_kspace", body)
                 latencies.append(time.perf_counter() - t1)
                 in_lock.append(runner.last_latency_s)
-                if morphology.LAUNCHES != before + 1:
+                if any(n != before[k] + 1
+                       for k, n in mask_launches().items()):
                     raise AssertionError(
-                        f"request {i} launched open_close "
-                        f"{morphology.LAUNCHES - before} times, not once")
+                        f"request {i} launched the mask kernels "
+                        f"{mask_launches()} times since {before}, not once")
                 for key in ("mask", "body_mask"):
                     if (out[key].shape != (shape[0], 320, 320)
                             or out[key].dtype != np.uint8):
@@ -552,7 +610,7 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
                                              "differs from in-process")
                 if list(out["indices"]) != list(range(shape[0])):
                     raise AssertionError(f"request {i}: {out['indices']}")
-            launches = morphology.LAUNCHES
+            launches = mask_launches()
             breakdown = _serve_breakdown(runner, bodies[0])
         finally:
             _stop_server(server, thread)
@@ -561,7 +619,7 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
           "request_shape": list(vols[0].shape),
           "request_mb": len(bodies[0]) / 1e6, "latency_s": latencies,
           "runner_locked_s": in_lock, "breakdown_s": breakdown,
-          "precision_flags": served_flags, "open_close_launches": launches})
+          "precision_flags": served_flags, "launches": launches})
     return launches
 
 def _train_model(seed: int, name: str = "unet") -> torch.nn.Module:
@@ -579,24 +637,25 @@ def _engine(model: torch.nn.Module, aug: str, amp: bool) -> Engine:
 
 
 def pack_volumes(dev: torch.device, art: str) -> dict:
-    """The training path's kernel: one open/close launch per packed
-    volume, counted from 0 just before the packing."""
+    """The training path's kernels: one open/close and one
+    label_components launch per packed volume, counted from 0 just before
+    the packing."""
     pre = MRIKneePreprocessor(out_size=(320, 320), slice_keep=(0.3, 0.7),
                               device=dev)
     pairs = [synthetic_kspace_pairs(seed=i, s=VOLUME[0], h=VOLUME[1],
                                     w=VOLUME[2])
              for i in range(TRAIN_VOLUMES)]
     secs, slices = [], []
-    morphology.LAUNCHES = 0
+    reset_mask_launches()
     for i, pair in enumerate(pairs):
         t1 = time.perf_counter()
         info = pack_kspace_volume(pre, pair, os.path.join(art, f"vol{i}"))
         secs.append(time.perf_counter() - t1)
         slices.append(info["num_slices"])
-    launches = morphology.LAUNCHES
-    if launches != TRAIN_VOLUMES:
+    launches = mask_launches()
+    if set(launches.values()) != {TRAIN_VOLUMES}:
         raise AssertionError(f"packing {TRAIN_VOLUMES} volumes launched "
-                             f"open_close {launches} times")
+                             f"the mask kernels {launches} times")
     if slices != [14] * TRAIN_VOLUMES:
         raise AssertionError(f"slices per pack {slices}, expected 14 each")
     return {"launches": launches, "pack_s": secs,
@@ -836,8 +895,8 @@ def train_breakdown(dev: torch.device, src: SliceStore, batch: int,
             "save_best_s": ckpt_s, "save_samples_s": samples_s}
 
 
-def phase_train(dev: torch.device, defaults: dict, tmp: str) -> int:
-    """The training path: returns open_close's launches while packing.
+def phase_train(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """The training path: returns the mask kernels' launches while packing.
     The packs, lists and run directory stay in ``tmp`` for phase 7."""
     t0 = time.perf_counter()
     _set_precision_flags(defaults)
@@ -1127,13 +1186,14 @@ def serve_tta_microbatched(model: torch.nn.Module, dev: torch.device,
         probs = [segment_volume_2d(local, torch.from_numpy(v).to(dev),
                                    tta="hflip") for v in vols]
         vs_request = _mask_margin(replies, probs)
-        before = morphology.LAUNCHES
+        before = mask_launches()
         kreply = _post(url + "/v1/segment_kspace", _npz_bytes(kspace=kpair))
-        kspace_launches = morphology.LAUNCHES - before
-        if (kspace_launches != 1
+        kspace_launches = {k: n - before[k]
+                           for k, n in mask_launches().items()}
+        if (set(kspace_launches.values()) != {1}
                 or kreply["mask"].shape != (SERVE_SLICES, 320, 320)):
-            raise AssertionError(f"/v1/segment_kspace launched open_close "
-                                 f"{kspace_launches} times")
+            raise AssertionError(f"/v1/segment_kspace launched the mask "
+                                 f"kernels {kspace_launches} times")
         metrics = _metricsz(url)
         if (metrics["serve_requests_total"] != len(vols) + 1
                 or metrics["serve_errors_total"] != 0):
@@ -1266,27 +1326,272 @@ def run_report(tmp: str) -> dict:
 
 
 def phase_evaluate(model: torch.nn.Module, dev: torch.device,
-                   defaults: dict, tmp: str) -> int:
-    """Phase 7: returns open_close's launches on its path (the one
+                   defaults: dict, tmp: str) -> dict:
+    """Phase 7: returns the mask kernels' launches on its path (the one
     /v1/segment_kspace request), counted from 0 at its start."""
     t0 = time.perf_counter()
     _set_precision_flags(defaults)
     with open(os.path.join(tmp, "lists", "train.txt"),
               encoding="utf-8") as f:
         src = SliceStore.from_files(f.read().split())
-    morphology.LAUNCHES = 0
+    reset_mask_launches()
     out = {"infer_cli": infer_cli(dev, tmp),
            "evaluate_volume": evaluate_card_vs_cpu(dev, tmp),
            "serve_tta_microbatched": serve_tta_microbatched(model, dev, tmp),
            "unetpp": unetpp_full_width(dev, src, tmp),
            "report": run_report(tmp)}
-    launches = morphology.LAUNCHES
+    launches = mask_launches()
     if _precision_flags() != defaults:
         raise AssertionError(f"phase 7 left the precision flags changed: "
                              f"{_precision_flags()}, not {defaults}")
     emit({"phase": "evaluate", "seconds": time.perf_counter() - t0, **out,
-          "open_close_launches": launches})
+          "launches": launches})
     return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the rest of preprocessing
+# --------------------------------------------------------------------------
+
+CC_OPS_PER_PIXEL_SWEEP = 4 * 3   # label_prop.cu: 4 passes x (2 tests, 1 min)
+
+
+def label_components_bound_ms(shape) -> tuple:
+    """Least time for the labels of a uint8 (S, H, W) stack on an H100 and
+    what sets it: read the mask and write the int32 labels once (bytes),
+    against one pass of the kernel's integer operations over every pixel
+    at the INT32 rate. How many sweeps a mask needs is a cost of this
+    algorithm, not of the function: see :func:`label_components_sweeps_ms`."""
+    s, h, w = shape
+    bytes_ms = 5 * s * h * w / HBM_BYTES_PER_S * 1e3
+    ops_ms = CC_OPS_PER_PIXEL_SWEEP * s * h * w / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def label_components_sweeps_ms(shape, sweeps: int) -> float:
+    """The sweep algorithm's own floor: its integer operations for the
+    sweeps these masks took (``sweeps`` summed over the slices, the last,
+    checking sweep of each included) at the INT32 rate."""
+    _, h, w = shape
+    return CC_OPS_PER_PIXEL_SWEEP * h * w * sweeps / INT32_OPS_PER_S * 1e3
+
+
+def masks_before_components(pair: np.ndarray,
+                            dev: torch.device) -> torch.Tensor:
+    """The body masks of a k-space volume as the chain makes them, before
+    their connected components: uint8 (S, H, W) on ``dev``."""
+    pre = MRIKneePreprocessor(device=dev)
+    return open_closed_otsu_mask(*pre._clip(pre._upload(pair), True))[0]
+
+
+def check_labels(m: torch.Tensor, name: str) -> torch.Tensor:
+    """label_components on the card against its plain sweeps, bit-equal;
+    returns the sweeps each slice took on the card."""
+    sweeps = torch.zeros(m.shape[0], dtype=torch.int32, device=m.device)
+    got = components.label_components(m, sweeps)
+    torch.cuda.synchronize()
+    want = components.label_components_reference(m)
+    n_diff = int((got != want).sum())
+    if n_diff or got.dtype != torch.int32:
+        raise AssertionError(f"label_components {name}: {n_diff} labels "
+                             f"differ from the plain sweeps ({got.dtype})")
+    return sweeps.cpu()
+
+
+def time_labels(m: torch.Tensor) -> dict:
+    """The kernel cold and warm, its plain sweeps by the host clock (they
+    read a flag back each sweep), the function's bound, and the sweep
+    algorithm's floor for this run's sweeps."""
+    sweeps = check_labels(m, f"timed {tuple(m.shape)}")
+    kernel = lambda: components.label_components(m)  # noqa: E731
+    timers = {"cold": cuda_ms(kernel, cold=True),
+              "warm": cuda_ms(kernel, cold=False)}
+    bound_ms, bound_by = label_components_bound_ms(tuple(m.shape))
+    return {"shape": list(m.shape), "cold_ms": timers["cold"]["ms"],
+            "warm_ms": timers["warm"]["ms"], "host_us": host_us(kernel),
+            "plain_ms": probe_label_prop.host_ms(
+                lambda: components.label_components_reference(m)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / timers["cold"]["ms"],
+            "algorithm_floor_ms": label_components_sweeps_ms(
+                tuple(m.shape), int(sweeps.sum())),
+            "sweeps": sweeps.tolist(), "timers": timers}
+
+
+def label_components_checks(dev: torch.device) -> dict:
+    """Edge cases, phase 3's masks before their components, and the times
+    at a volume (phase 3's) and a request (phase 5's first)."""
+    cases = component_masks(np.random.default_rng(0))
+    edge = {}
+    for name, m in cases:
+        sweeps = check_labels(torch.from_numpy(m.astype(np.uint8)).to(dev),
+                              name)
+        edge[name] = int(sweeps.max())
+    if edge["maze"] < 300:
+        raise AssertionError(f"the serpentine took {edge['maze']} sweeps")
+    volume = masks_before_components(synthetic_kspace_pairs(
+        seed=1, s=VOLUME[0], h=VOLUME[1], w=VOLUME[2]), dev)
+    request = masks_before_components(synthetic_kspace_pairs(
+        seed=100, s=SERVE_SLICES, h=VOLUME[1], w=VOLUME[2]), dev)
+    return {"cases": len(cases), "max_sweeps_by_case": edge,
+            "bit_equal": True, "volume": time_labels(volume),
+            "served": time_labels(request)}
+
+
+def multicoil_volume(dev: torch.device, pair: np.ndarray) -> dict:
+    """A (35, 15, 640, 368, 2) volume through preprocess_volume_pairs,
+    card against CPU; the card's first and warm seconds and peak memory."""
+    kw = dict(out_size=(320, 320), slice_keep=(0.0, 1.0))
+    pre = MRIKneePreprocessor(device=dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    got = pre.preprocess_volume_pairs(pair)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    warm = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        pre.preprocess_volume_pairs(pair)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    want = MRIKneePreprocessor(device="cpu", **kw).preprocess_volume_pairs(
+        pair)
+    cpu_s = time.perf_counter() - t1
+    return {"shape": list(pair.shape), "card_first_s": first_s,
+            "card_warm_s": warm, "peak_gib_above_start": peak / 2 ** 30,
+            "cpu_s": cpu_s, **compare_packs(got, want, pair.shape[0])}
+
+
+def restored_slices(dev: torch.device, pair: np.ndarray) -> dict:
+    """The chain with N4 and NL-means on, card against CPU: first each
+    slice's N4 updates per level on the chain's own clipped image and body
+    mask, then the packs; tensors are held on the slices whose updates and
+    masks agree."""
+    kw = dict(out_size=(320, 320), slice_keep=(0.0, 1.0), use_n4=True,
+              use_denoise=True)
+    card = MRIKneePreprocessor(device=dev, **kw)
+    cpu = MRIKneePreprocessor(device="cpu", **kw)
+    iters = []
+    for pre in (card, cpu):
+        img, mk = pre._clip_and_mask(pre._upload(pair), True)
+        iters.append(n4_bias_correction(img, mk, return_iterations=True
+                                        )[1].cpu())
+    same_iters = (iters[0] == iters[1]).all(dim=1)
+    if not bool(same_iters.any()):
+        raise AssertionError(f"N4 updates differ in every slice: {iters}")
+    t1 = time.perf_counter()
+    got = card.preprocess_volume_pairs(pair)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    want = cpu.preprocess_volume_pairs(pair)
+    cpu_s = time.perf_counter() - t1
+    keep = {k: got[k][same_iters.to(dev)] for k in ("mask", "tensor")}
+    held = compare_packs(keep, {k: want[k][same_iters] for k in keep},
+                         int(same_iters.sum()), RESTORED_TOL)
+    return {"shape": list(pair.shape), "n4_updates_card": iters[0].tolist(),
+            "n4_updates_cpu": iters[1].tolist(),
+            "slices_with_equal_updates": int(same_iters.sum()),
+            "card_s": card_s, "cpu_s": cpu_s, **held}
+
+
+def multicoil_request(model: torch.nn.Module, dev: torch.device) -> dict:
+    """One multi-coil /v1/segment_kspace request against the in-process
+    result: returns its reply's check and the mask kernels' launches, counted
+    from 0 just before it."""
+    kpair = synthetic_multicoil_kspace_pairs(
+        seed=3, s=MULTICOIL_REQUEST_SLICES, c=COILS, h=VOLUME[1], w=VOLUME[2])
+    body = _npz_bytes(kspace=kpair)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "best.ckpt")
+        save_best(ckpt, model.state_dict(),
+                  {"model": "unet", "encoder": "resnet34", "k": 1,
+                   "classes": 1, "imagenet_norm": False})
+        server, thread, url = _start_server(ckpt, dev)
+        try:
+            expected = server.RequestHandlerClass.runner.segment_kspace(
+                kpair, 0.5, False)
+            reset_mask_launches()
+            t1 = time.perf_counter()
+            out = _post(url + "/v1/segment_kspace", body)
+            latency = time.perf_counter() - t1
+            launches = mask_launches()
+        finally:
+            _stop_server(server, thread)
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"the multi-coil request launched the mask "
+                             f"kernels {launches} times, not once each")
+    for key in ("mask", "body_mask"):
+        if (out[key].shape != (MULTICOIL_REQUEST_SLICES, 320, 320)
+                or not np.array_equal(out[key], expected[key])):
+            raise AssertionError(f"served multi-coil {key} differs from "
+                                 "in-process")
+    if not out["body_mask"].any():
+        raise AssertionError("the multi-coil request's body masks are empty")
+    return {"request_shape": list(kpair.shape), "request_mb": len(body) / 1e6,
+            "latency_s": latency, "launches": launches}
+
+
+def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
+                          defaults: dict) -> tuple:
+    """Phase 8: returns the kernels-line rows of label_components and
+    masked_max_prop, and the mask kernels' launches on the multi-coil
+    request."""
+    t0 = time.perf_counter()
+    f32 = {"cudnn_allow_tf32": False, "matmul_allow_tf32": False,
+           "cudnn_deterministic": True}
+    _set_precision_flags(f32)   # the chains card vs CPU in f32
+    cc = label_components_checks(dev)
+    components.reset_launches()
+    probe = probe_label_prop.probe(dev)
+    probe_launches = components.LAUNCHES["masked_max_prop"]
+    if probe_launches < 1:
+        raise AssertionError("the probe launched masked_max_prop no time")
+    pair = synthetic_multicoil_kspace_pairs(seed=2, s=VOLUME[0], c=COILS,
+                                            h=VOLUME[1], w=VOLUME[2])
+    volume = multicoil_volume(dev, pair)
+    mid = (pair.shape[0] - RESTORED_SLICES) // 2
+    restored = restored_slices(dev, pair[mid:mid + RESTORED_SLICES])
+    del pair
+    _set_precision_flags(defaults)
+    request = multicoil_request(model, dev)
+    emit({"phase": "preprocess_rest", "seconds": time.perf_counter() - t0,
+          "chain_flags": f32, "label_components": cc,
+          "masked_max_prop": probe, "multicoil_volume": volume,
+          "n4_nl_means": restored, "multicoil_request": request})
+    source = "mri_acl_imagesegmentation_adsp_tpu_torch/csrc/label_prop.cu"
+    replaces = "scripts/probe_pallas_roll.py:50"
+    served = {k: cc["served"][k] for k in ("shape", "cold_ms", "warm_ms",
+                                           "host_us", "plain_ms", "bound_ms",
+                                           "bound_by")}
+    cc_row = {"name": "label_components", "route": "cuda", "source": source,
+              "replaces": replaces, "launches": None, "max_abs_err": 0.0,
+              "ms": cc["volume"]["cold_ms"],
+              "plain_ms": cc["volume"]["plain_ms"],
+              "bound_ms": cc["volume"]["bound_ms"],
+              "bound_by": cc["volume"]["bound_by"], "library_ms": None,
+              "shape": cc["volume"]["shape"],
+              "warm_ms": cc["volume"]["warm_ms"],
+              "host_us": cc["volume"]["host_us"],
+              "algorithm_floor_ms": cc["volume"]["algorithm_floor_ms"],
+              "sweeps_per_slice": cc["volume"]["sweeps"],
+              "served_shape": served}
+    prop_row = {"name": "masked_max_prop", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": probe_launches,
+                "launches_by_path": {"probe": probe_launches},
+                "max_abs_err": 0.0, "ms": probe["ms"],
+                "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
+                "bound_by": probe["bound_by"], "library_ms": None,
+                "shape": probe["shape"], "iters": probe["iters"],
+                "warm_ms": probe["warm_ms"],
+                "serial_floor_cluster_ms": probe["serial_floor_cluster_ms"],
+                "serial_floor_one_sm_ms": probe["serial_floor_one_sm_ms"]}
+    return cc_row, prop_row, request["launches"]
 
 
 def main() -> int:
@@ -1302,18 +1607,22 @@ def main() -> int:
     row = phase_kernel(dev)
     phase_preprocess(dev)
     model = phase_model(dev)
-    row["launches"] = phase_serve(model, dev, defaults)
-    if row["launches"] < 1:
-        raise AssertionError("the main path launched open_close no time")
+    by_path = {"serve": phase_serve(model, dev, defaults)}
+    if min(by_path["serve"].values()) < 1:
+        raise AssertionError(f"the main path launched a mask kernel no "
+                             f"time: {by_path['serve']}")
     with tempfile.TemporaryDirectory() as tmp:
-        row["launches_by_path"] = {
-            "serve": row["launches"], "train": phase_train(dev, defaults, tmp),
-            "evaluate_serve": phase_evaluate(model, dev, defaults, tmp)}
-    if row["launches_by_path"]["evaluate_serve"] != 1:
-        raise AssertionError("phase 7 launched open_close "
-                             f"{row['launches_by_path']['evaluate_serve']} "
-                             "times, not once")
-    emit({"kernels": [row]})
+        by_path["train"] = phase_train(dev, defaults, tmp)
+        by_path["evaluate_serve"] = phase_evaluate(model, dev, defaults, tmp)
+    if set(by_path["evaluate_serve"].values()) != {1}:
+        raise AssertionError(f"phase 7 launched the mask kernels "
+                             f"{by_path['evaluate_serve']} times, not once")
+    cc_row, prop_row, by_path["multicoil_serve"] = phase_preprocess_rest(
+        model, dev, defaults)
+    for r in (row, cc_row):
+        r["launches"] = by_path["serve"][r["name"]]
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}
+    emit({"kernels": [row, cc_row, prop_row]})
     print(smi, flush=True)
     emit({"total_seconds": time.perf_counter() - t0})
     faulthandler.cancel_dump_traceback_later()

@@ -14,9 +14,10 @@ once and answers whole-volume requests on one device:
                            query: ?threshold=0.5, ?probs=1
                            -> .npz {mask uint8 (S,H,W) [, probs (S,C,H,W)]}
   POST /v1/segment_kspace  body: .npz with "kspace", single-coil (S,H,W,2)
-                           float32 real pair; the preprocess chain (iFFT,
-                           clip, body mask, resize, z-score) runs in front
-                           of the model
+                           or multi-coil (S,C,H,W,2) float32 real pair; the
+                           preprocess chain (iFFT, per coil then RSS for
+                           multi-coil, clip, body mask, resize, z-score)
+                           runs in front of the model
                            query: ?threshold, ?probs, ?keep=lo,hi (slice
                            keep band, default 0,1 = every slice)
                            -> .npz {mask, body_mask uint8, indices int64
@@ -29,7 +30,7 @@ batches (``segment_volumes_2d``) on a dispatcher thread that owns the
 device; each request gets its own result, equal to the per-request path up
 to the batch composition. Bad input answers 400, any other failure 500. Not
 ported (``main`` has no flag for them): quantized artifacts (--qtree), data
-parallelism, multi-coil k-space, and the recon and classify tasks.
+parallelism, and the recon and classify tasks.
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
@@ -236,15 +237,10 @@ class _ModelRunner:
 
     def segment_kspace(self, kpair: np.ndarray, threshold: float,
                        want_probs: bool, slice_keep=(0.0, 1.0)) -> dict:
-        """Raw single-coil k-space -> preprocess chain -> model, one request.
-        The model sees exactly the z-scored tensor training consumed; the
-        response also carries the body mask and the kept slice indices."""
-        if kpair.ndim == 5:
-            raise ValueError("multi-coil (S,C,H,W,2) k-space is not ported "
-                             "yet; send single-coil (S,H,W,2)")
-        if kpair.ndim != 4 or kpair.shape[-1] != 2:
-            raise ValueError(f"kspace must be (S,H,W,2) real-pair, got "
-                             f"shape {kpair.shape}")
+        """Raw single-coil ``(S,H,W,2)`` or multi-coil ``(S,C,H,W,2)``
+        k-space -> preprocess chain -> model, one request. The model sees
+        exactly the z-scored tensor training consumed; the response also
+        carries the body mask and the kept slice indices."""
         band = tuple(float(v) for v in slice_keep)
         pre = self._pres.get(band)
         if pre is None:

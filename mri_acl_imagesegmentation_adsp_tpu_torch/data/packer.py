@@ -11,8 +11,9 @@ files and QC statistics:
   preview/slice_XXX.png  the first ``preview_max`` preview slices
   stats.json             in-mask mean / std of each z-scored slice
 
-``pack_kspace_volume`` is the single-coil k-space branch of
-``build_preprocess`` (:102-216) for a volume already in memory. Reading
+``pack_kspace_volume`` is the k-space branch of ``build_preprocess``
+(:102-216) for a volume already in memory, single-coil or multi-coil, with
+the preprocessor's own settings (N4 and NL-means among them). Reading
 fastMRI ``.h5`` files (``data/adapters.py``) is not ported yet.
 """
 
@@ -89,11 +90,11 @@ def save_pack(out_dir: str, pack: Dict[str, Any],
 
 def pack_kspace_volume(preprocessor: MRIKneePreprocessor, kspace_pair,
                        out_dir: str, preview_max: int = 8) -> Dict[str, Any]:
-    """Preprocess one single-coil ``(S, H, W, 2)`` k-space volume on the
-    preprocessor's device and save its pack in ``out_dir``. Returns the
-    summary entry ``build_preprocess`` gives a volume."""
+    """Preprocess one single-coil ``(S, H, W, 2)`` or multi-coil ``(S, C,
+    H, W, 2)`` k-space volume on the preprocessor's device, with its
+    settings, and save its pack in ``out_dir``. Returns the summary entry
+    ``build_preprocess`` gives a volume."""
     pack = preprocessor.preprocess_volume_pairs(kspace_pair)
-    pack["metas"] = [{} for _ in pack["indices"]]
     save_pack(out_dir, pack, preview_max=preview_max)
     return {"output_dir": str(out_dir),
             "npz_path": os.path.join(str(out_dir), "volume.npz"),

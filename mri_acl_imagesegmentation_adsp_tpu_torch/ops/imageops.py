@@ -1,8 +1,9 @@
 """Intensity and geometry image ops, batched over leading axes.
 
 Counterparts in ``mri_acl_imagesegmentation_adsp_tpu/ops/imageops.py``:
-``quantile_from_sorted`` (:44-57), ``_resize_weights`` / ``resize_bilinear``
-(:60-97), ``zscore_in_mask`` (:100-120) and ``preview_01`` (:123-135).
+``percentile`` and ``percentile_clip`` (:32-41; the port's ``clip_sorted``
+holds the clip rule for both), ``quantile_from_sorted`` (:44-57),
+``_resize_weights`` / ``resize_bilinear`` (:60-97), ``zscore_in_mask`` (:100-120) and ``preview_01`` (:123-135).
 Reductions run over the last two axes, so a ``(S, H, W)`` stack is one call.
 """
 
@@ -26,6 +27,31 @@ def quantile_from_sorted(sorted_vals: torch.Tensor, q: float) -> torch.Tensor:
     frac = np.float32(pos - i0)
     return (sorted_vals[..., i0] * float(np.float32(1.0) - frac)
             + sorted_vals[..., i1] * float(frac))
+
+
+def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``np.percentile`` (linear) over all elements of ``x``."""
+    return quantile_from_sorted(torch.sort(x.float().reshape(-1)).values, q)
+
+
+def clip_sorted(img: torch.Tensor, pmin: float, pmax: float):
+    """Clip each ``(H, W)`` image of ``img`` to its own ``[pmin, pmax]``
+    percentiles; returns the clipped images (float32) and each image's
+    values sorted and clipped, ``(..., H*W)``. One sort serves both the
+    clip and, in the body mask, the Otsu histogram."""
+    x = img.float()
+    srt = torch.sort(x.flatten(-2), dim=-1).values
+    lo = quantile_from_sorted(srt, pmin)[..., None]
+    hi = quantile_from_sorted(srt, pmax)[..., None]
+    return (torch.clamp(x, lo[..., None], hi[..., None]),
+            torch.clamp(srt, lo, hi))
+
+
+def percentile_clip(img: torch.Tensor, pmin: float,
+                    pmax: float) -> torch.Tensor:
+    """Clip each ``(H, W)`` image of ``img`` to its own ``[pmin, pmax]``
+    percentiles."""
+    return clip_sorted(img, pmin, pmax)[0]
 
 
 @lru_cache(maxsize=64)

@@ -9,18 +9,19 @@ Counterparts in ``mri_acl_imagesegmentation_adsp_tpu/ops/maskops.py``:
 live in ``kernels/morphology.py`` beside the CUDA kernel they are the plain
 version of.
 
-Connected components have no torch primitive. Here they iterate to the
-exact fixpoint: run ids come from a ``cumsum`` of the background along an
-axis, per-run minima from ``scatter_reduce(..., "amin")``, and row and
-column sweeps alternate until no label changes. The JAX version's fixed
-sweep count and its ``cc_ok`` certificate only bound XLA compiles; the
-partition, and so the surviving pixels, are the same.
+Connected components have no torch primitive: ``label_components`` is
+``kernels/components.py``'s, the CUDA kernel ``csrc/label_prop.cu`` for a
+CUDA tensor (to the fixpoint in one launch) and row and column sweeps on the
+CPU. The JAX version's fixed sweep count and its ``cc_ok`` certificate only
+bound XLA compiles; the partition, and so the surviving pixels, are the
+same.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernels.components import label_components
 from .kernels.morphology import open_close
 
 
@@ -67,73 +68,37 @@ def otsu_threshold_sorted(sorted_values: torch.Tensor,
 # Connected components + small-object removal
 # --------------------------------------------------------------------------
 
-def _run_min(lbl: torch.Tensor, run_id: torch.Tensor, fg: torch.Tensor,
-             n_runs: int, sentinel: int) -> torch.Tensor:
-    """Replace each foreground label by the minimum over its run.
-
-    Background pixels scatter their sentinel, which never lowers a minimum,
-    so every pixel can scatter without first selecting the foreground."""
-    mins = torch.full((n_runs,), sentinel, dtype=lbl.dtype, device=lbl.device)
-    mins.scatter_reduce_(0, run_id.reshape(-1), lbl.reshape(-1), "amin")
-    return torch.where(fg, mins[run_id], sentinel)
-
-
-def label_components(mask: torch.Tensor) -> torch.Tensor:
-    """4-connected component labels of each slice of a ``(S, H, W)`` mask.
-
-    Returns int64 ``(S, H, W)``: background holds ``H*W``, each foreground
-    pixel the minimum in-slice linear index of its component (the JAX
-    version's labels). Row and column sweeps alternate to the fixpoint.
-    """
-    s, h, w = mask.shape
-    dev = mask.device
-    fg = mask > 0
-    bg = (~fg).to(torch.int64)
-    sentinel = h * w
-    lbl = torch.where(fg, torch.arange(h * w, device=dev).view(1, h, w),
-                      sentinel)
-    # a run of foreground along an axis is the pixels between two
-    # background pixels: a cumsum of the background numbers the runs
-    rows = torch.arange(s * h, device=dev).view(s, h, 1)
-    row_id = rows * (w + 1) + torch.cumsum(bg, dim=2)
-    cols = (torch.arange(s, device=dev).view(s, 1, 1) * w
-            + torch.arange(w, device=dev).view(1, 1, w))
-    col_id = cols * (h + 1) + torch.cumsum(bg, dim=1)
-    while True:
-        nxt = _run_min(lbl, row_id, fg, s * h * (w + 1), sentinel)
-        nxt = _run_min(nxt, col_id, fg, s * w * (h + 1), sentinel)
-        if torch.equal(nxt, lbl):
-            return lbl
-        lbl = nxt
-
-
 def remove_small_objects(mask: torch.Tensor,
                          min_size: int = 256) -> torch.Tensor:
     """Drop 4-connected components with fewer than ``min_size`` pixels from
-    each slice of a ``(S, H, W)`` mask (skimage semantics). Returns bool."""
+    each slice of a ``(S, H, W)`` mask (skimage semantics). Returns bool.
+
+    Component sizes are counted with ``scatter_add_`` into a tensor of the
+    known size ``S * (H*W + 1)`` (one slot per label and slice), so on the
+    card nothing is read back to size it."""
     s, h, w = mask.shape
     lbl = label_components(mask)
-    key = lbl + (h * w + 1) * torch.arange(s, device=mask.device).view(s, 1, 1)
-    counts = torch.bincount(key.reshape(-1), minlength=s * (h * w + 1))
-    return (mask > 0) & (counts[key] >= min_size)
+    key = (lbl.to(torch.int64) + (h * w + 1)
+           * torch.arange(s, device=mask.device).view(s, 1, 1)).reshape(-1)
+    counts = torch.zeros(s * (h * w + 1), dtype=torch.int32,
+                         device=mask.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    return (mask > 0) & (counts[key].view(s, h, w) >= min_size)
 
 
 # --------------------------------------------------------------------------
 # Body mask (the segmentation target)
 # --------------------------------------------------------------------------
 
-def body_mask(img: torch.Tensor,
-              sorted_values: torch.Tensor | None = None) -> torch.Tensor:
-    """Otsu body mask + disk(2) open/close + remove_small_objects(256).
-
-    ``img`` is ``(S, H, W)``; ``sorted_values``, if the caller has them,
-    are each slice's values sorted ascending, ``(S, H*W)``. Per slice:
-    ``v = (img - min) / (max - min)``, ``th = otsu(v)`` (0.5 if not
-    finite), ``m = v > th``, then the disk(2) opening
-    and closing (the CUDA kernel for a CUDA tensor, its plain version on
-    the CPU), then small-object removal; a constant slice gives an empty
-    mask. Returns uint8 ``(S, H, W)``.
-    """
+def open_closed_otsu_mask(img: torch.Tensor,
+                          sorted_values: torch.Tensor | None = None):
+    """The body mask before its connected components: per slice of ``img``
+    ``(S, H, W)``, ``v = (img - min) / (max - min)``, ``th = otsu(v)`` (0.5
+    if not finite), ``m = v > th``, then the disk(2) opening and closing
+    (the CUDA kernel for a CUDA tensor, its plain version on the CPU).
+    ``sorted_values``, if the caller has them, are each slice's values
+    sorted ascending, ``(S, H*W)``. Returns the uint8 ``(S, H, W)`` mask
+    and the bool ``(S, 1)`` flag of the slices that are not constant."""
     img = img.float()
     s, h, w = img.shape
     if sorted_values is None:
@@ -148,8 +113,17 @@ def body_mask(img: torch.Tensor,
     sorted_v = torch.where(nonzero, (sorted_values - imin) / denom, 0.0)
     th = otsu_threshold_sorted(sorted_v)
     th = torch.where(torch.isfinite(th), th, 0.5)
-
     m = (v > th[:, None, None]).to(torch.uint8)
-    m = open_close(m.contiguous())
+    return open_close(m.contiguous()), nonzero
+
+
+def body_mask(img: torch.Tensor,
+              sorted_values: torch.Tensor | None = None) -> torch.Tensor:
+    """Otsu body mask + disk(2) open/close + remove_small_objects(256):
+    :func:`open_closed_otsu_mask`, then small-object removal (its connected
+    components in the CUDA kernel for a CUDA tensor, in their plain version
+    on the CPU); a constant slice gives an empty mask. Returns uint8
+    ``(S, H, W)``."""
+    m, nonzero = open_closed_otsu_mask(img, sorted_values)
     m = remove_small_objects(m, 256)
     return (m & nonzero[:, :, None]).to(torch.uint8)

@@ -46,6 +46,9 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
 
     with pytest.raises(RuntimeError, match="cuda"):
         MRIKneePreprocessor(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MRIKneePreprocessor.ifft2c_single(      # default device
+            np.ones((4, 4), np.complex64))
     ckpt = str(tmp_path / "best.ckpt")
     model = build_unet("unet", "resnet18")
     save_best(ckpt, model.state_dict(), {"model": "unet",

@@ -1,10 +1,10 @@
-"""The port's CUDA kernel against its plain version, and the training and
-evaluation paths against the CPU, on the card.
+"""The port's CUDA kernels against their plain versions, and the training
+and evaluation paths against the CPU, on the card.
 
 Run on a machine with an NVIDIA card and nvcc (``--noconftest``: that
 machine has no JAX, which tests/conftest.py imports):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
-Elsewhere every test here skips (the kernel has no CPU mode).
+Elsewhere every test here skips (the kernels have no CPU mode).
 """
 import pathlib
 
@@ -19,7 +19,9 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import maskops
-from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import morphology
+from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
+    components, morphology)
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils import synthetic
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs)
 
@@ -203,3 +205,61 @@ def test_unetpp_logits_on_the_card_match_the_cpu(card):
          torch.backends.cuda.matmul.allow_tf32) = flags
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# csrc/label_prop.cu: connected components and the probe's propagation
+# ---------------------------------------------------------------------------
+
+CC_CASES = [name for name, _ in synthetic.component_masks(
+    np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("name", CC_CASES)
+def test_label_components_kernel_bit_equal_to_plain(card, name):
+    """Every width across the 32-pixel tiles at H = 1 and 37, all
+    foreground and background, a checkerboard, the 640x368 serpentine
+    (hundreds of sweeps), one-pixel rings and components on every border:
+    the kernel's int32 labels equal the plain version's, in one launch."""
+    m = dict(synthetic.component_masks(np.random.default_rng(0)))[name]
+    x = torch.from_numpy(m.astype(np.uint8)).to(card)
+    sweeps = torch.zeros(m.shape[0], dtype=torch.int32, device=card)
+    before = components.LAUNCHES["label_components"]
+    got = components.label_components(x, sweeps)
+    torch.cuda.synchronize()
+    assert components.LAUNCHES["label_components"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, components.label_components_reference(x))
+    assert bool((sweeps >= 1).all())
+    if name == "maze":
+        assert int(sweeps[0]) >= 300
+
+
+def test_label_components_kernel_on_a_volume_and_in_the_body_mask(card):
+    """A random (35, 640, 368) stack, and the body mask's small-object
+    removal, which runs the kernel once for the stack."""
+    m = torch.from_numpy((np.random.default_rng(1).random((35, 640, 368))
+                          < 0.6).astype(np.uint8)).to(card)
+    assert torch.equal(components.label_components(m),
+                       components.label_components_reference(m))
+    before = components.LAUNCHES["label_components"]
+    got = maskops.remove_small_objects(m, 256)
+    assert components.LAUNCHES["label_components"] == before + 1
+    assert torch.equal(got.cpu(), maskops.remove_small_objects(m.cpu(), 256))
+
+
+@pytest.mark.parametrize("shape,iters", [((320, 320), 128), ((1, 1), 3),
+                                         ((7, 5), 9), ((33, 47), 40),
+                                         ((64, 368), 0)])
+def test_masked_max_prop_kernel_bit_equal_to_plain(card, shape, iters):
+    rng = np.random.default_rng(0)
+    mask = (rng.random(shape) > 0.4).astype(np.float32)
+    x = (np.arange(np.prod(shape), dtype=np.float32).reshape(shape) + 1
+         ) * mask
+    mt, xt = torch.from_numpy(mask).to(card), torch.from_numpy(x).to(card)
+    before = components.LAUNCHES["masked_max_prop"]
+    got = components.masked_max_prop(mt, xt, iters)
+    torch.cuda.synchronize()
+    assert components.LAUNCHES["masked_max_prop"] == before + 1
+    assert torch.equal(got, components.masked_max_prop_reference(mt, xt,
+                                                                 iters))

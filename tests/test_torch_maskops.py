@@ -5,7 +5,11 @@ Masks are held bit-equal: the same seeded numpy inputs, the frozen goldens
 (tests/goldens/*.npz) and the six real fastMRI panels go through the JAX
 function and its port. The open/close plain version is also held against
 the Pallas kernel run as tests/test_pallas_kernels.py runs it (interpret
-mode on the CPU).
+mode on the CPU); the plain connected components against the JAX exact
+path at the label kernel's edge cases, bit-equal; the plain masked max
+propagation against the probe's ``prop_xla`` loop
+(``scripts/probe_pallas_roll.py:59-65``), rebuilt here with ``jnp.roll``
+since the script imports the TPU Pallas module when it loads.
 """
 import pathlib
 
@@ -22,9 +26,10 @@ from mri_acl_imagesegmentation_adsp_tpu.ops.pallas import fused_open_close
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import maskops
-from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import morphology
+from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
+    components, morphology)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    synthetic_knee, synthetic_kspace_pairs)
+    component_masks, synthetic_knee, synthetic_kspace_pairs)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 
@@ -207,10 +212,97 @@ def test_preprocess_volume_pairs_matches_jax():
 
 
 def test_preprocess_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        MRIKneePreprocessor(use_n4=True, device="cpu")
+    """N4, NL-means and multi-coil k-space are ported now; what is refused
+    is a bad band, a bad k-space shape and volumes spread over cards."""
+    pre = MRIKneePreprocessor(use_n4=True, use_denoise=True, device="cpu")
+    assert pre.use_n4 and pre.use_denoise
     with pytest.raises(ValueError):
         MRIKneePreprocessor(slice_keep=(0.7, 0.3), device="cpu")
     with pytest.raises(ValueError):
         MRIKneePreprocessor(device="cpu").preprocess_volume_pairs(
-            np.zeros((2, 3, 8, 8, 2), np.float32))
+            np.zeros((2, 3, 8, 8, 3), np.float32))
+    with pytest.raises(NotImplementedError):
+        MRIKneePreprocessor(device="cpu").preprocess_volumes_pairs(
+            [np.zeros((2, 8, 8, 2), np.float32)], devices=["cpu", "cpu"])
+
+
+# The label kernel's edge cases at CPU sizes: widths across the 32-pixel
+# tiles, H = 1 and 20, all foreground / background, a checkerboard, a
+# 129x65 serpentine (64 sweeps), one-pixel rings, components on every
+# border. chip_smoke.py and tests/test_torch_cuda.py take the full list.
+SMALL_CC = component_masks(np.random.default_rng(3),
+                           widths=(1, 31, 32, 33, 65), heights=(1, 20),
+                           maze_hw=(129, 65))
+
+
+@pytest.fixture(scope="module")
+def jax_label():
+    return jax.jit(jm.label_components)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in SMALL_CC])
+def test_label_components_plain_matches_jax_at_kernel_edges(jax_label,
+                                                            name):
+    m = dict(SMALL_CC)[name]
+    got = maskops.label_components(torch.from_numpy(m))
+    assert got.dtype == torch.int32
+    for s in range(m.shape[0]):
+        want = np.asarray(jax_label(jnp.asarray(m[s])))
+        assert want.dtype == np.int32
+        np.testing.assert_array_equal(got[s].numpy(), want, err_msg=name)
+    if name == "checkerboard":
+        fg = m[0]
+        assert (got[0].numpy()[fg] == np.flatnonzero(fg.ravel())).all()
+    if name == "all_background":
+        assert (got.numpy() == m.shape[1] * m.shape[2]).all()
+
+
+def _prop_xla(mask, x, iters):
+    """The probe's ``prop_xla`` with its ITERS as an argument."""
+    def body(i, v):
+        nb = jnp.maximum(jnp.maximum(jnp.roll(v, 1, 0), jnp.roll(v, -1, 0)),
+                         jnp.maximum(jnp.roll(v, 1, 1), jnp.roll(v, -1, 1)))
+        return jnp.where(mask > 0, jnp.maximum(v, nb), v)
+    return jax.lax.fori_loop(0, iters, body, x)
+
+
+@pytest.mark.parametrize("shape,iters", [((320, 320), 128), ((33, 47), 17),
+                                         ((1, 1), 2), ((5, 1), 4)])
+def test_masked_max_prop_plain_matches_the_probe(shape, iters):
+    """The probe's input (mask density 0.6, x = (index + 1) * mask) at its
+    (320, 320) and 128 iterations, and odd shapes; max and select are
+    exact, so bit-equal. On the CPU the wrapper is the plain version."""
+    rng = np.random.default_rng(0)
+    mask = (rng.random(shape) > 0.4).astype(np.float32)
+    x = (np.arange(np.prod(shape), dtype=np.float32).reshape(shape) + 1
+         ) * mask
+    want = np.asarray(jax.jit(_prop_xla, static_argnums=2)(
+        jnp.asarray(mask), jnp.asarray(x), iters))
+    mt, xt = torch.from_numpy(mask), torch.from_numpy(x)
+    got = components.masked_max_prop_reference(mt, xt, iters)
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = dict(components.LAUNCHES)
+    np.testing.assert_array_equal(
+        components.masked_max_prop(mt, xt, iters).numpy(), want)
+    assert components.LAUNCHES == before
+
+
+def test_component_wrappers_check_their_input():
+    with pytest.raises(ValueError):
+        components.label_components(torch.zeros(4, 4, dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        components.masked_max_prop(torch.zeros(4, 4, dtype=torch.float64),
+                                   torch.zeros(4, 4), 1)
+    with pytest.raises(ValueError):
+        components.masked_max_prop(torch.zeros(4, 4), torch.zeros(4, 5), 1)
+    with pytest.raises(ValueError):
+        components.masked_max_prop(torch.zeros(4, 4), torch.zeros(4, 4), -1)
+
+
+def test_body_mask_is_remove_small_objects_of_the_open_closed_mask(rng):
+    imgs = torch.from_numpy(np.stack([synthetic_knee(rng, 64, 48)
+                                      for _ in range(3)]))
+    pre, nonzero = maskops.open_closed_otsu_mask(imgs)
+    assert pre.dtype == torch.uint8 and bool(nonzero.all())
+    want = maskops.remove_small_objects(pre, 256).to(torch.uint8)
+    assert torch.equal(maskops.body_mask(imgs), want)

@@ -28,7 +28,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.convert import (
     state_dict_from_flax)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import checkpoint
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    synthetic_kspace_pairs)
+    synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs)
 
 ARGS = {"model": "unet", "encoder": "resnet18", "k": 1, "classes": 1,
         "amp": False, "imagenet_norm": False}
@@ -126,6 +126,25 @@ def test_segment_kspace_matches_jax_runner(served):
     assert list(mid["indices"]) == [1, 2, 3] and "probs" not in mid
 
 
+def test_segment_kspace_multicoil_matches_jax_runner(served):
+    """Multi-coil (S, C, H, W, 2) k-space: per-coil iFFT and RSS in front
+    of the chain, as the JAX runner takes it; the same bounds as the
+    single-coil request."""
+    url, jax_runner = served
+    pair = synthetic_multicoil_kspace_pairs(seed=8, s=4, c=3, h=64, w=48)
+    got = _post(url + "/v1/segment_kspace?probs=1", kspace=pair)
+    want = jax_runner.segment_kspace(pair, 0.5, True)
+    assert got["mask"].shape == (4, 32, 32)
+    np.testing.assert_array_equal(got["body_mask"], want["body_mask"])
+    assert got["body_mask"].any()
+    assert list(got["indices"]) == list(want["indices"]) == list(range(4))
+    np.testing.assert_allclose(got["probs"], want["probs"], rtol=1e-4,
+                               atol=1e-4)
+    near = np.abs(want["probs"][:, 0] - 0.5) < 1e-5
+    assert not near.any()
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+
+
 def test_segment_matches_jax_runner(served):
     url, jax_runner = served
     vol = np.random.default_rng(0).standard_normal((5, 32, 32)).astype(
@@ -145,7 +164,9 @@ def test_bad_requests(served):
     assert _status(url + "/v1/segment_kspace", img=pair) == 400
     assert _status(url + "/v1/segment_kspace?keep=1,0", kspace=pair) == 400
     assert _status(url + "/v1/segment_kspace",
-                   kspace=np.zeros((2, 3, 16, 16, 2), np.float32)) == 400
+                   kspace=np.zeros((2, 3, 16, 16, 3), np.float32)) == 400
+    assert _status(url + "/v1/segment_kspace",
+                   kspace=np.zeros((1, 2, 3, 16, 16, 2), np.float32)) == 400
     assert _status(url + "/v1/segment",
                    img=np.zeros((4, 4), np.float32)) == 400
     assert _status(url + "/v1/classify", x=pair) == 404
