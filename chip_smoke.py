@@ -47,18 +47,24 @@ Phases, each printing one JSON line with its seconds:
      each on it and on the same daemon without the window; UNet++ at full width
      (logits card vs CPU, b8 bf16 train slices/s, a checkpoint served
      back); the run report of phase 6's run directory;
-  8  the rest of preprocessing: label_components kernel vs its plain sweeps,
-     bit-equal at its edge cases (widths across its tiles, H = 1, a
-     checkerboard, a 640x368 serpentine of hundreds of sweeps, rings,
-     borders) and on phase 3's volume's masks before their components,
-     timed at a volume and a request; the probe's masked_max_prop
-     (``tools/probe_label_prop.py``) bit-equal and timed; a seeded
+  8  the rest of preprocessing: label_components (three kernels, tiled
+     union-find) vs its plain sweeps, bit-equal in one wrapper call each at
+     its edge cases (widths across its tiles, H = 1, a checkerboard, a
+     640x368 serpentine of hundreds of plain sweeps, a comb, rings,
+     borders), 20 identical calls, a call that reads nothing back, and on
+     phase 3's volume's masks before their components; timed at a volume,
+     a request and the serpentine beside the bound and the plain sweeps,
+     and as a share of phase 3's and phase 5's preprocess; the probe's
+     masked_max_prop (``tools/probe_label_prop.py``) bit-equal and timed,
+     with its time split into set-up, steps and halo exchanges; a seeded
      (35, 15, 640, 368, 2) multi-coil volume card vs CPU, its card time and
      peak memory; N4 + NL-means on 4 of its slices card vs CPU, per-slice
      N4 updates compared first; one (4, 15, 640, 368, 2) multi-coil
      /v1/segment_kspace request against the in-process result, launching
      each mask kernel once.
-Then a ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
+Then a ``kernels`` line (each kernel's times, bound, plain version, and
+the CUDA kernels a wrapper call launches, from a profiler trace), the
+``nvidia-smi`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any mismatch raises and the script exits
 non-zero; without a card it exits non-zero and prints no result, and a
 watchdog turns a hang into a non-zero exit with a traceback.
@@ -122,7 +128,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
     make_optimizer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
-    cuda_ms, host_us)
+    cuda_ms, host_us, kernel_trace)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     component_masks, synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs)
 
@@ -168,6 +174,7 @@ COILS = 15                 # fastMRI knee multi-coil: 15 coils at 640x368
 MULTICOIL_REQUEST_SLICES = 4
 RESTORED_SLICES = 4        # N4 + NL-means card vs CPU on this many slices
 RESTORED_TOL = 1e-3        # their z-scored tensors, times 1 + max|t|
+CHAIN_RUNS = 5             # warm preprocess runs: their median is kept
 KERNEL_SOURCES = ("open_close", "label_prop")
 
 
@@ -382,8 +389,8 @@ def time_shape(dev: torch.device, shape, rng) -> dict:
     out = {"shape": list(shape),
            "band_rows": morphology.band_plan(shape[0], shape[1])[0],
            "cold_ms": cold_ms, "warm_ms": timers["warm"]["ms"],
-           "host_us": host_us(kernel), "plain_ms": timers["plain"]["ms"],
-           "conv_ms": min(conv.values()),
+           "host_us": host_us(kernel), **kernel_trace(kernel),
+           "plain_ms": timers["plain"]["ms"], "conv_ms": min(conv.values()),
            "conv_dtype": min(conv, key=conv.get).removeprefix("conv_"),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_share": bound_ms / cold_ms, "timers": timers}
@@ -413,17 +420,22 @@ def phase_kernel(dev: torch.device) -> dict:
            "bound_by": volume["bound_by"], "library_ms": None,
            "shape": volume["shape"], "warm_ms": volume["warm_ms"],
            "host_us": volume["host_us"], "conv_ms": volume["conv_ms"],
+           "kernel_us": volume["kernel_us"],
+           "kernels_per_call": volume["kernels_per_call"],
            "served_shape": {
                k: served[k] for k in ("shape", "cold_ms", "warm_ms",
                                       "host_us", "plain_ms", "conv_ms",
-                                      "bound_ms", "bound_by")}}
+                                      "bound_ms", "bound_by", "kernel_us",
+                                      "kernels_per_call")}}
     emit({"phase": "kernel", "seconds": time.perf_counter() - t0,
           "cases": len(cases), "bit_equal": True, "max_abs_err": max_err,
           "volume": volume, "served": served})
     return row
 
 
-def phase_preprocess(dev: torch.device, shape=VOLUME) -> None:
+def phase_preprocess(dev: torch.device, shape=VOLUME) -> float:
+    """Returns the card's warm seconds for the volume, the median of
+    ``CHAIN_RUNS`` runs."""
     t0 = time.perf_counter()
     pair = synthetic_kspace_pairs(seed=1, s=shape[0], h=shape[1], w=shape[2])
     kw = dict(out_size=(320, 320), slice_keep=(0.0, 1.0))
@@ -436,18 +448,22 @@ def phase_preprocess(dev: torch.device, shape=VOLUME) -> None:
     if mask_launches() != {"open_close": 1, "label_components": 1}:
         raise AssertionError(f"the preprocess chain launched the mask "
                              f"kernels {mask_launches()} times, not once each")
-    t1 = time.perf_counter()
-    pre.preprocess_volume_pairs(pair)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t1
+    warm = []
+    for _ in range(CHAIN_RUNS):
+        t1 = time.perf_counter()
+        pre.preprocess_volume_pairs(pair)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t1)
+    warm_s = float(np.median(warm))
     t1 = time.perf_counter()
     want = MRIKneePreprocessor(device="cpu", **kw).preprocess_volume_pairs(
         pair)
     cpu_s = time.perf_counter() - t1
     emit({"phase": "preprocess", "seconds": time.perf_counter() - t0,
           "shape": list(pair.shape), "card_first_s": first_s,
-          "card_warm_s": warm_s, "cpu_s": cpu_s,
+          "card_warm_s": warm_s, "card_warm_runs_s": warm, "cpu_s": cpu_s,
           **compare_packs(got, want, shape[0])})
+    return warm_s
 
 
 def compare_packs(got: dict, want: dict, slices: int,
@@ -559,7 +575,8 @@ def _stop_server(server, thread) -> None:
 def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
                 shape=(SERVE_SLICES,) + VOLUME[1:]) -> dict:
     """The main path: returns the mask kernels' launches during the
-    requests.
+    requests, and the in-process preprocess seconds of one request (the
+    median stage times of ``CHAIN_RUNS`` in-process runs).
     It starts from torch's own precision flags, so the daemon runs with
     the settings that its command line gives it."""
     t0 = time.perf_counter()
@@ -611,7 +628,10 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
                 if list(out["indices"]) != list(range(shape[0])):
                     raise AssertionError(f"request {i}: {out['indices']}")
             launches = mask_launches()
-            breakdown = _serve_breakdown(runner, bodies[0])
+            runs = [_serve_breakdown(runner, bodies[0])
+                    for _ in range(CHAIN_RUNS)]
+            breakdown = {k: float(np.median([r[k] for r in runs]))
+                         for k in runs[0]}
         finally:
             _stop_server(server, thread)
     emit({"phase": "serve", "seconds": time.perf_counter() - t0,
@@ -619,8 +639,9 @@ def phase_serve(model: torch.nn.Module, dev: torch.device, defaults: dict,
           "request_shape": list(vols[0].shape),
           "request_mb": len(bodies[0]) / 1e6, "latency_s": latencies,
           "runner_locked_s": in_lock, "breakdown_s": breakdown,
+          "breakdown_runs_s": runs,
           "precision_flags": served_flags, "launches": launches})
-    return launches
+    return launches, breakdown["preprocess"]
 
 def _train_model(seed: int, name: str = "unet") -> torch.nn.Module:
     """The reference's model (or UNet++) at full width with seeded random
@@ -1353,28 +1374,22 @@ def phase_evaluate(model: torch.nn.Module, dev: torch.device,
 # Phase 8: the rest of preprocessing
 # --------------------------------------------------------------------------
 
-CC_OPS_PER_PIXEL_SWEEP = 4 * 3   # label_prop.cu: 4 passes x (2 tests, 1 min)
+CC_OPS_PER_PIXEL = 12     # a pass joining each pixel to its 4 neighbours:
+                          # 4 x (a test, a min, an index step)
+CC_REPEATS = 20           # identical calls: the atomics' order must not show
 
 
 def label_components_bound_ms(shape) -> tuple:
     """Least time for the labels of a uint8 (S, H, W) stack on an H100 and
     what sets it: read the mask and write the int32 labels once (bytes),
-    against one pass of the kernel's integer operations over every pixel
-    at the INT32 rate. How many sweeps a mask needs is a cost of this
-    algorithm, not of the function: see :func:`label_components_sweeps_ms`."""
+    against one pass of integer operations over every pixel at the INT32
+    rate. How far a mask's minima travel is a cost of an algorithm, not of
+    the function."""
     s, h, w = shape
     bytes_ms = 5 * s * h * w / HBM_BYTES_PER_S * 1e3
-    ops_ms = CC_OPS_PER_PIXEL_SWEEP * s * h * w / INT32_OPS_PER_S * 1e3
+    ops_ms = CC_OPS_PER_PIXEL * s * h * w / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
-
-
-def label_components_sweeps_ms(shape, sweeps: int) -> float:
-    """The sweep algorithm's own floor: its integer operations for the
-    sweeps these masks took (``sweeps`` summed over the slices, the last,
-    checking sweep of each included) at the INT32 rate."""
-    _, h, w = shape
-    return CC_OPS_PER_PIXEL_SWEEP * h * w * sweeps / INT32_OPS_PER_S * 1e3
 
 
 def masks_before_components(pair: np.ndarray,
@@ -1386,12 +1401,16 @@ def masks_before_components(pair: np.ndarray,
 
 
 def check_labels(m: torch.Tensor, name: str) -> torch.Tensor:
-    """label_components on the card against its plain sweeps, bit-equal;
-    returns the sweeps each slice took on the card."""
-    sweeps = torch.zeros(m.shape[0], dtype=torch.int32, device=m.device)
-    got = components.label_components(m, sweeps)
+    """label_components on the card against its plain sweeps, bit-equal, in
+    one wrapper call; returns the sweeps each slice takes in the plain
+    version."""
+    before = components.LAUNCHES["label_components"]
+    got = components.label_components(m)
     torch.cuda.synchronize()
-    want = components.label_components_reference(m)
+    if components.LAUNCHES["label_components"] != before + 1:
+        raise AssertionError(f"label_components {name}: not one launch")
+    want, sweeps = components.label_components_reference(m,
+                                                         return_sweeps=True)
     n_diff = int((got != want).sum())
     if n_diff or got.dtype != torch.int32:
         raise AssertionError(f"label_components {name}: {n_diff} labels "
@@ -1400,9 +1419,10 @@ def check_labels(m: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def time_labels(m: torch.Tensor) -> dict:
-    """The kernel cold and warm, its plain sweeps by the host clock (they
-    read a flag back each sweep), the function's bound, and the sweep
-    algorithm's floor for this run's sweeps."""
+    """The kernels cold and warm, each CUDA kernel a call launches (warm,
+    from a profiler trace), the plain sweeps by the host clock (they read a
+    flag back each sweep) and the sweeps they take, and the function's
+    bound."""
     sweeps = check_labels(m, f"timed {tuple(m.shape)}")
     kernel = lambda: components.label_components(m)  # noqa: E731
     timers = {"cold": cuda_ms(kernel, cold=True),
@@ -1410,18 +1430,41 @@ def time_labels(m: torch.Tensor) -> dict:
     bound_ms, bound_by = label_components_bound_ms(tuple(m.shape))
     return {"shape": list(m.shape), "cold_ms": timers["cold"]["ms"],
             "warm_ms": timers["warm"]["ms"], "host_us": host_us(kernel),
+            **kernel_trace(kernel),
             "plain_ms": probe_label_prop.host_ms(
                 lambda: components.label_components_reference(m)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / timers["cold"]["ms"],
-            "algorithm_floor_ms": label_components_sweeps_ms(
-                tuple(m.shape), int(sweeps.sum())),
-            "sweeps": sweeps.tolist(), "timers": timers}
+            "plain_sweeps": sweeps.tolist(), "timers": timers}
+
+
+def repeat_and_sync_checks(dev: torch.device) -> dict:
+    """``CC_REPEATS`` calls on one random (8, 640, 368) stack give the same
+    labels, those of the plain sweeps; and a call under
+    ``torch.cuda.set_sync_debug_mode("error")`` reads nothing back."""
+    m = torch.from_numpy((np.random.default_rng(5).random(
+        (SERVE_SLICES,) + VOLUME[1:]) < 0.6).astype(np.uint8)).to(dev)
+    first = components.label_components(m)
+    check_labels(m, "random request stack")
+    for i in range(CC_REPEATS - 1):
+        if not torch.equal(components.label_components(m), first):
+            raise AssertionError(f"label_components call {i + 2} of "
+                                 f"{CC_REPEATS} differs from the first")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        components.label_components(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"repeats": CC_REPEATS, "identical": True,
+            "no_sync_in_wrapper": True}
 
 
 def label_components_checks(dev: torch.device) -> dict:
-    """Edge cases, phase 3's masks before their components, and the times
-    at a volume (phase 3's) and a request (phase 5's first)."""
+    """Edge cases, repeated calls, phase 3's masks before their components,
+    and the times at a volume (phase 3's) and a request (phase 5's
+    first)."""
     cases = component_masks(np.random.default_rng(0))
     edge = {}
     for name, m in cases:
@@ -1429,14 +1472,17 @@ def label_components_checks(dev: torch.device) -> dict:
                               name)
         edge[name] = int(sweeps.max())
     if edge["maze"] < 300:
-        raise AssertionError(f"the serpentine took {edge['maze']} sweeps")
+        raise AssertionError(f"the serpentine took {edge['maze']} plain "
+                             "sweeps")
+    repeats = repeat_and_sync_checks(dev)
     volume = masks_before_components(synthetic_kspace_pairs(
         seed=1, s=VOLUME[0], h=VOLUME[1], w=VOLUME[2]), dev)
     request = masks_before_components(synthetic_kspace_pairs(
         seed=100, s=SERVE_SLICES, h=VOLUME[1], w=VOLUME[2]), dev)
-    return {"cases": len(cases), "max_sweeps_by_case": edge,
-            "bit_equal": True, "volume": time_labels(volume),
-            "served": time_labels(request)}
+    maze = torch.from_numpy(dict(cases)["maze"].astype(np.uint8)).to(dev)
+    return {"cases": len(cases), "max_plain_sweeps_by_case": edge,
+            "bit_equal": True, **repeats, "volume": time_labels(volume),
+            "served": time_labels(request), "maze": time_labels(maze)}
 
 
 def multicoil_volume(dev: torch.device, pair: np.ndarray) -> dict:
@@ -1538,15 +1584,22 @@ def multicoil_request(model: torch.nn.Module, dev: torch.device) -> dict:
 
 
 def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
-                          defaults: dict) -> tuple:
+                          defaults: dict, chain_s: dict) -> tuple:
     """Phase 8: returns the kernels-line rows of label_components and
     masked_max_prop, and the mask kernels' launches on the multi-coil
-    request."""
+    request. ``chain_s`` holds phase 3's warm preprocess seconds of a
+    volume and phase 5's in-process preprocess seconds of a request, of
+    which the labels' warm time is reported as a share."""
     t0 = time.perf_counter()
     f32 = {"cudnn_allow_tf32": False, "matmul_allow_tf32": False,
            "cudnn_deterministic": True}
     _set_precision_flags(f32)   # the chains card vs CPU in f32
     cc = label_components_checks(dev)
+    share = {**chain_s,
+             "labels_share_of_volume": cc["volume"]["warm_ms"] * 1e-3
+             / chain_s["preprocess_volume_warm_s"],
+             "labels_share_of_request": cc["served"]["warm_ms"] * 1e-3
+             / chain_s["preprocess_request_s"]}
     components.reset_launches()
     probe = probe_label_prop.probe(dev)
     probe_launches = components.LAUNCHES["masked_max_prop"]
@@ -1562,13 +1615,13 @@ def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
     request = multicoil_request(model, dev)
     emit({"phase": "preprocess_rest", "seconds": time.perf_counter() - t0,
           "chain_flags": f32, "label_components": cc,
-          "masked_max_prop": probe, "multicoil_volume": volume,
-          "n4_nl_means": restored, "multicoil_request": request})
+          "body_mask_share": share, "masked_max_prop": probe,
+          "multicoil_volume": volume, "n4_nl_means": restored,
+          "multicoil_request": request})
     source = "mri_acl_imagesegmentation_adsp_tpu_torch/csrc/label_prop.cu"
     replaces = "scripts/probe_pallas_roll.py:50"
-    served = {k: cc["served"][k] for k in ("shape", "cold_ms", "warm_ms",
-                                           "host_us", "plain_ms", "bound_ms",
-                                           "bound_by")}
+    keys = ("shape", "cold_ms", "warm_ms", "host_us", "plain_ms", "bound_ms",
+            "bound_by", "kernel_us", "kernels_per_call")
     cc_row = {"name": "label_components", "route": "cuda", "source": source,
               "replaces": replaces, "launches": None, "max_abs_err": 0.0,
               "ms": cc["volume"]["cold_ms"],
@@ -1578,9 +1631,11 @@ def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
               "shape": cc["volume"]["shape"],
               "warm_ms": cc["volume"]["warm_ms"],
               "host_us": cc["volume"]["host_us"],
-              "algorithm_floor_ms": cc["volume"]["algorithm_floor_ms"],
-              "sweeps_per_slice": cc["volume"]["sweeps"],
-              "served_shape": served}
+              "kernel_us": cc["volume"]["kernel_us"],
+              "kernels_per_call": cc["volume"]["kernels_per_call"],
+              "plain_sweeps_per_slice": cc["volume"]["plain_sweeps"],
+              "served_shape": {k: cc["served"][k] for k in keys},
+              "maze": {k: cc["maze"][k] for k in keys}}
     prop_row = {"name": "masked_max_prop", "route": "cuda", "source": source,
                 "replaces": replaces, "launches": probe_launches,
                 "launches_by_path": {"probe": probe_launches},
@@ -1589,6 +1644,9 @@ def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
                 "bound_by": probe["bound_by"], "library_ms": None,
                 "shape": probe["shape"], "iters": probe["iters"],
                 "warm_ms": probe["warm_ms"],
+                "kernel_us": probe["kernel_us"],
+                "kernels_per_call": probe["kernels_per_call"],
+                "plan": probe["plan"],
                 "serial_floor_cluster_ms": probe["serial_floor_cluster_ms"],
                 "serial_floor_one_sm_ms": probe["serial_floor_one_sm_ms"]}
     return cc_row, prop_row, request["launches"]
@@ -1605,9 +1663,11 @@ def main() -> int:
     smi, defaults = phase_setup()
     phase_build()
     row = phase_kernel(dev)
-    phase_preprocess(dev)
+    chain_s = {"preprocess_volume_warm_s": phase_preprocess(dev)}
     model = phase_model(dev)
-    by_path = {"serve": phase_serve(model, dev, defaults)}
+    serve_launches, chain_s["preprocess_request_s"] = phase_serve(
+        model, dev, defaults)
+    by_path = {"serve": serve_launches}
     if min(by_path["serve"].values()) < 1:
         raise AssertionError(f"the main path launched a mask kernel no "
                              f"time: {by_path['serve']}")
@@ -1618,7 +1678,7 @@ def main() -> int:
         raise AssertionError(f"phase 7 launched the mask kernels "
                              f"{by_path['evaluate_serve']} times, not once")
     cc_row, prop_row, by_path["multicoil_serve"] = phase_preprocess_rest(
-        model, dev, defaults)
+        model, dev, defaults, chain_s)
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

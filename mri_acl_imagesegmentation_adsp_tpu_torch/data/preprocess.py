@@ -11,7 +11,7 @@ The JAX version jits one slice and vmaps it; here every step takes the whole
 ``(S, H, W)`` stack, and every result is a tensor on the preprocessor's
 device. The JAX version's fixed connected-component sweeps and its fallback
 for slices they do not settle have no counterpart: the port's connected
-components always run to the fixpoint (``ops/kernels/components.py``).
+components are always exact (``ops/kernels/components.py``).
 """
 
 from __future__ import annotations

@@ -10,11 +10,11 @@ live in ``kernels/morphology.py`` beside the CUDA kernel they are the plain
 version of.
 
 Connected components have no torch primitive: ``label_components`` is
-``kernels/components.py``'s, the CUDA kernel ``csrc/label_prop.cu`` for a
-CUDA tensor (to the fixpoint in one launch) and row and column sweeps on the
-CPU. The JAX version's fixed sweep count and its ``cc_ok`` certificate only
-bound XLA compiles; the partition, and so the surviving pixels, are the
-same.
+``kernels/components.py``'s, the CUDA kernels ``csrc/label_prop.cu`` for a
+CUDA tensor (union-find over 32x32 tiles, three launches, no host sync) and
+row and column sweeps on the CPU. The JAX version's fixed sweep count and
+its ``cc_ok`` certificate only bound XLA compiles; the partition, and so the
+surviving pixels, are the same.
 """
 
 from __future__ import annotations

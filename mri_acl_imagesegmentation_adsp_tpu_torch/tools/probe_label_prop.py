@@ -12,11 +12,13 @@ one ``(320, 320)`` float32 image with a mask of density 0.6 and values
   launch) against its plain PyTorch loop, bit-equal, each timed cold and
   warm with ``utils/cuda_timing.py`` (the host out of the window), beside
   the operations bound and the serial floors of one SM and of the
-  kernel's cluster;
+  cluster's SMs; the CUDA kernels a call launches (a profiler trace); and
+  the kernel warm at 0, ``halo``, ``2 * halo`` and 128 steps, which splits
+  its time into set-up, steps and halo exchanges;
 - ``label_components``: the same mask's exact 4-connected labels, the
-  kernel against its plain sweeps, bit-equal, and their times (the plain
-  sweeps read a flag back each sweep, so they are timed by the host clock
-  around a synchronize).
+  kernels against the plain sweeps, bit-equal, cold and warm, the sweeps
+  the plain version takes and its time (it reads a flag back each sweep,
+  so it is timed by the host clock around a synchronize).
 
 Prints the card's ``nvidia-smi`` line and one JSON line, and writes the line
 to ``--out``. Exits non-zero without a card or when a result differs.
@@ -35,14 +37,13 @@ import numpy as np
 import torch
 
 from ..ops.kernels import components
-from ..utils.cuda_timing import cuda_ms
+from ..utils.cuda_timing import cuda_ms, kernel_trace
 
 SHAPE = (320, 320)
 ITERS = 128
 OPS_PER_PIXEL_STEP = 6       # 4 neighbour maxima, the max with v, a select
 F32_OPS_PER_S = 33.5e12      # H100 SXM non-FMA float32: half of 67 TFLOP/s
 SM_F32_OPS_PER_S = 128 * 1.98e9   # one SM: 128 float32 lanes at boost
-CLUSTER_SMS = 8              # kCluster in csrc/label_prop.cu
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -57,7 +58,8 @@ def probe_input(dev) -> tuple:
 def prop_bound() -> dict:
     """The least time for the probe's 128 steps: operations at the card's
     non-FMA float32 rate against the bytes (mask and x in, v out), and the
-    floors of the dependent steps run on one SM and on the cluster's SMs."""
+    floors of the dependent steps run on one SM and on the cluster's
+    ``PROP_CLUSTER`` SMs."""
     ops = ITERS * SHAPE[0] * SHAPE[1] * OPS_PER_PIXEL_STEP
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bytes_ms = 3 * 4 * SHAPE[0] * SHAPE[1] / HBM_BYTES_PER_S * 1e3
@@ -65,8 +67,8 @@ def prop_bound() -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "operations": ops,
             "serial_floor_one_sm_ms": ops / SM_F32_OPS_PER_S * 1e3,
-            "serial_floor_cluster_ms": ops / (CLUSTER_SMS * SM_F32_OPS_PER_S)
-            * 1e3}
+            "serial_floor_cluster_ms": ops / (
+                components.PROP_CLUSTER * SM_F32_OPS_PER_S) * 1e3}
 
 
 def host_ms(fn, runs: int = 5) -> float:
@@ -81,6 +83,14 @@ def host_ms(fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     return float(np.median(times)) * 1e3
+
+
+def _warm_ms_by_iters(mask, x) -> dict:
+    """The kernel warm at 0, ``halo``, ``2 * halo`` and ``ITERS`` steps,
+    which splits its time into set-up, steps and halo exchanges."""
+    k = components.prop_plan(*SHAPE)["halo"]
+    return {n: cuda_ms(lambda: components.masked_max_prop(  # noqa: B023
+        mask, x, n), cold=False)["ms"] for n in (0, k, 2 * k, ITERS)}
 
 
 def probe(dev) -> dict:
@@ -98,26 +108,34 @@ def probe(dev) -> dict:
     timers = {"cold": cuda_ms(kernel, cold=True),
               "warm": cuda_ms(kernel, cold=False),
               "plain": cuda_ms(plain, cold=True, iters=10)}
+    by_iters = _warm_ms_by_iters(mask, x)
     m8 = (mask > 0).to(torch.uint8)[None]
     lbl = components.label_components(m8)
-    if not torch.equal(lbl, components.label_components_reference(m8)):
+    want_lbl, sweeps = components.label_components_reference(
+        m8, return_sweeps=True)
+    if not torch.equal(lbl, want_lbl):
         raise AssertionError("label_components differs from the plain "
                              "sweeps on the probe's mask")
-    cc = {"cold": cuda_ms(lambda: components.label_components(m8),
-                          cold=True),
+    labels = lambda: components.label_components(m8)  # noqa: E731
+    cc = {"cold": cuda_ms(labels, cold=True),
+          "warm": cuda_ms(labels, cold=False),
           "plain_ms": host_ms(
               lambda: components.label_components_reference(m8))}
-    out = {"shape": list(SHAPE), "iters": ITERS, "bit_equal": True,
-           "ms": timers["cold"]["ms"], "warm_ms": timers["warm"]["ms"],
-           "plain_ms": timers["plain"]["ms"],
-           "us_per_step": timers["warm"]["ms"] * 1e3 / ITERS,
-           **prop_bound(), "timers": timers,
-           "label_components_on_the_mask": {
-               "components": int((lbl == torch.arange(
-                   lbl.numel(), device=dev).view_as(lbl)).sum()),
-               "cold_ms": cc["cold"]["ms"], "plain_ms": cc["plain_ms"],
-               "timer": cc["cold"]}}
-    return out
+    plan = components.prop_plan(*SHAPE)
+    return {"shape": list(SHAPE), "iters": ITERS, "bit_equal": True,
+            "plan": plan, "ms": timers["cold"]["ms"],
+            "warm_ms": timers["warm"]["ms"],
+            "plain_ms": timers["plain"]["ms"], **kernel_trace(kernel),
+            "us_per_step": timers["warm"]["ms"] * 1e3 / ITERS,
+            **prop_bound(), "timers": timers,
+            "warm_ms_by_iters": by_iters,
+            "label_components_on_the_mask": {
+                "components": int((lbl == torch.arange(
+                    lbl.numel(), device=dev).view_as(lbl)).sum()),
+                "plain_sweeps": int(sweeps[0]),
+                "cold_ms": cc["cold"]["ms"], "warm_ms": cc["warm"]["ms"],
+                "plain_ms": cc["plain_ms"],
+                "timers": {"cold": cc["cold"], "warm": cc["warm"]}}}
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,7 @@ sleeps longer if it did not.
 
 from __future__ import annotations
 
+import re
 import time
 from functools import lru_cache
 
@@ -99,3 +100,53 @@ def host_us(fn, iters: int = 200) -> float:
         times.append(time.perf_counter() - t)
     torch.cuda.synchronize()
     return float(np.median(times)) * 1e6
+
+
+def _trace(fn, runs: int, pad_s: float) -> dict:
+    """Launches and card microseconds of each CUDA kernel, by its name, in a
+    ``torch.profiler`` trace of ``runs`` calls that follows a warm-up cycle
+    of ``runs`` calls; the host waits ``pad_s`` at each edge of the cycles,
+    where a trace can miss kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            time.sleep(pad_s)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            prof.step()
+    out = {}
+    for ev in traced:
+        step = ev.key.startswith("ProfilerStep")   # the schedule's own span
+        if ev.device_time_total > 0 and not step:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name, maxsplit=1)[0].split()[-1]
+            name = name.rsplit("::", 1)[-1]
+            n, us = out.get(name, (0, 0.0))
+            out[name] = (n + ev.count, us + ev.device_time_total)
+    return out
+
+
+def kernel_trace(fn, runs: int = 10, attempts: int = 3,
+                 pad_s: float = 0.02) -> dict:
+    """The CUDA kernels a call of ``fn`` launches, from a profiler trace of
+    ``runs`` calls: ``kernel_us``, the mean card microseconds of one launch
+    of each kernel, by its name, and ``kernels_per_call``, the launches the
+    trace saw over ``runs``. Every call launches the same kernels, so a
+    trace in which a kernel's launches are not a multiple of ``runs`` has
+    missed some: it is taken again, up to ``attempts`` traces, and
+    ``complete`` says whether the last one saw them all."""
+    for _ in range(attempts):
+        seen = _trace(fn, runs, pad_s)
+        complete = bool(seen) and all(n % runs == 0 for n, _ in
+                                      seen.values())
+        if complete:
+            break
+    return {"kernel_us": {k: us / n for k, (n, us) in seen.items()},
+            "kernels_per_call": sum(n for n, _ in seen.values()) / runs,
+            "trace_complete": complete}

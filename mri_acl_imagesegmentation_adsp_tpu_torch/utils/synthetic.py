@@ -87,6 +87,16 @@ def serpentine(h: int, w: int) -> np.ndarray:
     return m
 
 
+def comb(h: int, w: int) -> np.ndarray:
+    """A comb in an ``(h, w)`` mask: teeth down every other column, joined
+    by the last row, so the component's minimum (the first tooth's top)
+    reaches the other teeth only through the tiles along the last row."""
+    m = np.zeros((h, w), bool)
+    m[:, 0::2] = True
+    m[-1, :] = True
+    return m
+
+
 def component_masks(rng: np.random.Generator,
                     widths=(1, 31, 32, 33, 368, 369), heights=(1, 37),
                     densities=(0.3, 0.6, 0.9),
@@ -95,7 +105,8 @@ def component_masks(rng: np.random.Generator,
     ``(S, H, W)`` stack: every width at every height, one slice per density;
     all foreground and all background; a checkerboard and its inverse (no
     two 4-neighbours joined); a serpentine maze of ``maze_hw``; one-pixel
-    rings, nested; components that touch every border."""
+    rings, nested; components that touch every border; a comb of
+    ``maze_hw``."""
     cases = []
     for w in widths:
         for h in heights:
@@ -107,6 +118,7 @@ def component_masks(rng: np.random.Generator,
     board = (yy + xx) % 2 == 0
     cases.append(("checkerboard", np.stack([board, ~board])))
     cases.append(("maze", serpentine(*maze_hw)[None]))
+    cases.append(("comb", comb(*maze_hw)[None]))
     ring = np.zeros((40, 50), bool)
     ring[3, 3:47] = ring[36, 3:47] = True
     ring[3:37, 3] = ring[3:37, 46] = True

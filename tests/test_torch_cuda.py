@@ -219,25 +219,95 @@ CC_CASES = [name for name, _ in synthetic.component_masks(
 def test_label_components_kernel_bit_equal_to_plain(card, name):
     """Every width across the 32-pixel tiles at H = 1 and 37, all
     foreground and background, a checkerboard, the 640x368 serpentine
-    (hundreds of sweeps), one-pixel rings and components on every border:
-    the kernel's int32 labels equal the plain version's, in one launch."""
+    (hundreds of plain sweeps), a comb, one-pixel rings and components on
+    every border: the kernels' int32 labels equal the plain version's, in
+    one wrapper call."""
     m = dict(synthetic.component_masks(np.random.default_rng(0)))[name]
     x = torch.from_numpy(m.astype(np.uint8)).to(card)
-    sweeps = torch.zeros(m.shape[0], dtype=torch.int32, device=card)
     before = components.LAUNCHES["label_components"]
-    got = components.label_components(x, sweeps)
+    got = components.label_components(x)
     torch.cuda.synchronize()
     assert components.LAUNCHES["label_components"] == before + 1
     assert got.dtype == torch.int32
-    assert torch.equal(got, components.label_components_reference(x))
+    want, sweeps = components.label_components_reference(x,
+                                                         return_sweeps=True)
+    assert torch.equal(got, want)
     assert bool((sweeps >= 1).all())
     if name == "maze":
         assert int(sweeps[0]) >= 300
 
 
+def _check_labels(m: np.ndarray):
+    x = torch.from_numpy(m.astype(np.uint8)).to("cuda")
+    before = components.LAUNCHES["label_components"]
+    got = components.label_components(x)
+    torch.cuda.synchronize()
+    assert components.LAUNCHES["label_components"] == before + 1
+    assert torch.equal(got, components.label_components_reference(x)), (
+        m.shape)
+
+
+@pytest.mark.parametrize("density", [0.3, 0.6, 0.9])
+def test_label_components_kernel_on_random_volumes(card, density):
+    """Random (35, 640, 368) stacks: many components and unions across
+    every tile edge."""
+    _check_labels(np.random.default_rng(int(density * 10)).random(
+        (35, 640, 368)) < density)
+
+
+@pytest.mark.parametrize("h", [63, 64, 65])
+def test_label_components_kernel_across_tile_edges(card, h):
+    """Heights and widths of 63, 64 and 65: the second tile row and column
+    empty, full and one pixel wide."""
+    rng = np.random.default_rng(h)
+    for w in (63, 64, 65):
+        _check_labels(np.stack([rng.random((h, w)) < d
+                                for d in (0.3, 0.6, 0.9)]))
+
+
+def test_label_components_kernel_on_the_probe_mask(card):
+    """The probe's random 320x320 mask (density 0.6)."""
+    _check_labels((np.random.default_rng(0).random((320, 320)) > 0.4)[None])
+
+
+def test_label_components_kernel_is_the_same_every_call(card):
+    """Twenty calls on one random stack: the atomics' order differs from
+    call to call, the labels must not."""
+    m = torch.from_numpy((np.random.default_rng(2).random((8, 640, 368))
+                          < 0.6).astype(np.uint8)).to(card)
+    first = components.label_components(m)
+    assert torch.equal(first, components.label_components_reference(m))
+    for _ in range(19):
+        assert torch.equal(components.label_components(m), first)
+
+
+def test_label_components_kernel_reads_nothing_back(card):
+    m = torch.from_numpy((np.random.default_rng(3).random((8, 640, 368))
+                          < 0.6).astype(np.uint8)).to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = components.label_components(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, components.label_components_reference(m))
+
+
+def test_label_components_launches_its_three_kernels(card):
+    """One wrapper call launches the three kernels of the design."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
+        kernel_trace)
+    m = torch.from_numpy((np.random.default_rng(4).random((8, 640, 368))
+                          < 0.6).astype(np.uint8)).to(card)
+    trace = kernel_trace(lambda: components.label_components(m), runs=3)
+    assert set(trace["kernel_us"]) == {"cc_local_kernel", "cc_merge_kernel",
+                                       "cc_compress_kernel"}
+    assert trace["kernels_per_call"] == 3
+
+
 def test_label_components_kernel_on_a_volume_and_in_the_body_mask(card):
     """A random (35, 640, 368) stack, and the body mask's small-object
-    removal, which runs the kernel once for the stack."""
+    removal, which runs the kernels once for the stack."""
     m = torch.from_numpy((np.random.default_rng(1).random((35, 640, 368))
                           < 0.6).astype(np.uint8)).to(card)
     assert torch.equal(components.label_components(m),
@@ -248,10 +318,16 @@ def test_label_components_kernel_on_a_volume_and_in_the_body_mask(card):
     assert torch.equal(got.cpu(), maskops.remove_small_objects(m.cpu(), 256))
 
 
-@pytest.mark.parametrize("shape,iters", [((320, 320), 128), ((1, 1), 3),
-                                         ((7, 5), 9), ((33, 47), 40),
-                                         ((64, 368), 0)])
+@pytest.mark.parametrize("shape,iters", [
+    ((320, 320), 128), ((1, 1), 3), ((7, 5), 9), ((33, 47), 40),
+    ((64, 368), 0), ((320, 368), 200), ((8, 320), 13),
+    ((320, 320), 3 * components.PROP_HALO + 5), ((640, 368), 37),
+    ((200, 100), 21)])
 def test_masked_max_prop_kernel_bit_equal_to_plain(card, shape, iters):
+    """The probe's shape and step count, odd shapes, (320, 368) at 200
+    steps, an (8, 320) image (a band of one row a block), step counts that
+    are not a multiple of the halo, the largest image of the tests (40-row
+    bands) and one whose last block owns fewer rows than the halo."""
     rng = np.random.default_rng(0)
     mask = (rng.random(shape) > 0.4).astype(np.float32)
     x = (np.arange(np.prod(shape), dtype=np.float32).reshape(shape) + 1
@@ -263,3 +339,9 @@ def test_masked_max_prop_kernel_bit_equal_to_plain(card, shape, iters):
     assert components.LAUNCHES["masked_max_prop"] == before + 1
     assert torch.equal(got, components.masked_max_prop_reference(mt, xt,
                                                                  iters))
+
+
+def test_masked_max_prop_refuses_an_image_one_cluster_cannot_hold(card):
+    m = torch.zeros(640, 640, device=card)
+    with pytest.raises(ValueError):
+        components.masked_max_prop(m, m, 1)

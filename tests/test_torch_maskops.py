@@ -29,7 +29,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.ops import maskops
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     components, morphology)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    component_masks, synthetic_knee, synthetic_kspace_pairs)
+    component_masks, serpentine, synthetic_knee, synthetic_kspace_pairs)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 
@@ -226,10 +226,10 @@ def test_preprocess_rejects_what_is_not_ported():
             [np.zeros((2, 8, 8, 2), np.float32)], devices=["cpu", "cpu"])
 
 
-# The label kernel's edge cases at CPU sizes: widths across the 32-pixel
+# The label kernels' edge cases at CPU sizes: widths across the 32-pixel
 # tiles, H = 1 and 20, all foreground / background, a checkerboard, a
-# 129x65 serpentine (64 sweeps), one-pixel rings, components on every
-# border. chip_smoke.py and tests/test_torch_cuda.py take the full list.
+# 129x65 serpentine (64 sweeps) and comb, one-pixel rings, components on
+# every border. chip_smoke.py and tests/test_torch_cuda.py take the full list.
 SMALL_CC = component_masks(np.random.default_rng(3),
                            widths=(1, 31, 32, 33, 65), heights=(1, 20),
                            maze_hw=(129, 65))
@@ -255,6 +255,101 @@ def test_label_components_plain_matches_jax_at_kernel_edges(jax_label,
         assert (got[0].numpy()[fg] == np.flatnonzero(fg.ravel())).all()
     if name == "all_background":
         assert (got.numpy() == m.shape[1] * m.shape[2]).all()
+
+
+# (S, H, W) for the label kernels' plan: one tile, a ragged last tile row
+# and column, H = 1, W = 1, tile edges at 63 / 64 / 65, a request, a volume.
+TILE_PLAN_SHAPES = [(1, 1, 1), (2, 1, 368), (1, 37, 1), (3, 32, 32),
+                    (1, 33, 31), (2, 63, 65), (1, 64, 64), (1, 65, 63),
+                    (8, 640, 368), (35, 640, 368), (70000, 2, 3)]
+
+
+@pytest.mark.parametrize("s,h,w", TILE_PLAN_SHAPES)
+def test_tile_plan_covers_each_pixel_and_edge_once(s, h, w):
+    """The label kernels' grid: cc_local's tiles cover every pixel of a
+    slice once; cc_merge's items, mapped to pixels as the kernel maps them,
+    are exactly the pixels with a 4-neighbour in another tile, each once;
+    cc_merge has a thread an item and cc_compress a thread for four
+    pixels, every kernel at least one block along a slice and at most
+    CUDA's grid.y along the slices; three kernels a call."""
+    plan = components.tile_plan(s, h, w)
+    ty, tx, t = plan["tiles_y"], plan["tiles_x"], components.TILE
+    covered = np.zeros((h, w), int)
+    for i in range(ty * tx):
+        y0, x0 = i // tx * t, i % tx * t
+        covered[y0:min(y0 + t, h), x0:min(x0 + t, w)] += 1
+    assert (covered == 1).all()
+    tile = (np.arange(h)[:, None] // t) * tx + np.arange(w)[None, :] // t
+    # (y, x) and its neighbour above or to the left in another tile
+    want = {(y + 1, x, y, x)
+            for y, x in zip(*np.nonzero(tile[1:] != tile[:-1]))}
+    want |= {(y, x + 1, y, x)
+             for y, x in zip(*np.nonzero(tile[:, 1:] != tile[:, :-1]))}
+    items = []
+    for j in range(plan["border"]):
+        if j < (ty - 1) * w:
+            y, x = (j // w + 1) * t, j % w
+            items.append((y, x, y - 1, x))
+        else:
+            jj = j - (ty - 1) * w
+            y, x = jj % h, (jj // h + 1) * t
+            items.append((y, x, y, x - 1))
+    assert len(items) == len(set(items)) and set(items) == want
+    lin = components.LINEAR_THREADS
+    assert plan["merge_blocks"] >= 1
+    assert plan["merge_blocks"] * lin >= plan["border"]
+    assert plan["compress_blocks"] * lin * 4 >= h * w
+    assert plan["grid_y"] == min(s, components.MAX_GRID_Y)
+
+
+def test_tile_plan_fills_the_card():
+    """A request's and a volume's tiles give cc_local at least a block per
+    SM of an H100 (132): 240 tiles a 640x368 slice."""
+    for s, blocks in ((8, 1920), (35, 8400)):
+        plan = components.tile_plan(s, 640, 368)
+        assert plan["tiles_y"] * plan["tiles_x"] * s == blocks
+        assert blocks >= morphology.SMS
+
+
+@pytest.mark.parametrize("h,w,band,k", [
+    (320, 320, 20, 8), (320, 368, 20, 8), (640, 368, 40, 8),
+    (200, 100, 13, 8), (8, 320, 1, 1), (1, 1, 1, 1), (33, 47, 3, 3),
+    (5, 7, 1, 1)])
+def test_prop_plan_bands_and_halo(h, w, band, k):
+    """Each of the cluster's 16 blocks' band, the halo never above the
+    band, and shared memory of two buffers of band + 2 k rows and two
+    export areas of 2 k rows."""
+    plan = components.prop_plan(h, w)
+    cluster = components.PROP_CLUSTER
+    assert (plan["band"], plan["halo"], plan["cluster"]) == (band, k,
+                                                             cluster)
+    assert k == min(components.PROP_HALO, band)
+    assert band * cluster >= h > (band - 1) * cluster
+    assert plan["smem"] == 4 * (2 * (band + 2 * k) + 4 * k) * w
+    assert plan["smem"] <= components.MAX_SMEM
+
+
+@pytest.mark.parametrize("h,w", [(640, 640), (1024, 1024), (320, 4096)])
+def test_prop_plan_refuses_an_image_one_cluster_cannot_hold(h, w):
+    """More than 32 pixels a thread or more shared memory than a block
+    can have, halo rows included."""
+    with pytest.raises(ValueError):
+        components.prop_plan(h, w)
+
+
+def test_plain_label_sweeps_on_the_serpentine():
+    """The plain version's sweep count, which the card tests and
+    chip_smoke.py hold at 300 or more on the 640x368 serpentine; a slice
+    that changes nothing takes one sweep, and the labels are those without
+    the count."""
+    m = torch.from_numpy(np.stack([serpentine(640, 368),
+                                   np.zeros((640, 368), bool)]))
+    lbl, sweeps = components.label_components_reference(m,
+                                                        return_sweeps=True)
+    assert sweeps.dtype == torch.int32 and sweeps.shape == (2,)
+    assert int(sweeps[0]) >= 300 and int(sweeps[1]) == 1
+    assert torch.equal(lbl, components.label_components_reference(m))
+    assert int(lbl[0][torch.from_numpy(serpentine(640, 368))].max()) == 0
 
 
 def _prop_xla(mask, x, iters):
