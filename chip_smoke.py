@@ -61,7 +61,25 @@ Phases, each printing one JSON line with its seconds:
      peak memory; N4 + NL-means on 4 of its slices card vs CPU, per-slice
      N4 updates compared first; one (4, 15, 640, 368, 2) multi-coil
      /v1/segment_kspace request against the in-process result, launching
-     each mask kernel once.
+     each mask kernel once;
+  9  the rest of the 2-D surface, on phase 6's ``amp`` checkpoint, val list
+     and packs, at full width: its bf16 logits of a (16, 1, 320, 320) batch
+     card vs CPU (within 8 bf16 spacings at the largest |logit|, the CPU
+     tests' bound) beside its f32 logits; the checkpoint served in bf16
+     (one 8-slice /v1/segment_kspace equal to in-process, each mask kernel
+     launched once); ``cli.quantize`` on it (a bfloat16 artifact); the
+     int8 convolution exact at K = 3*3*768 against int64 numpy; the
+     artifact's int8 logits card vs CPU, bit-equal; ``cli.infer --qtree``
+     and ``--quant folded`` with --metrics beside the bf16 run's Dice; a
+     ``--qtree`` daemon answering /v1/segment_kspace (each mask kernel
+     once) and /v1/segment, equal to in-process, with its /metricsz; the
+     16x320x320 batch timed at f32 (TF32 off), bf16, folded and int8; a
+     launcher run preempted after its first chunk by ``request_preempt()``
+     and resumed with --resume, its history and best.ckpt bit-equal to a
+     straight run (cuDNN deterministic); a launcher run with
+     --encoder-weights (a seeded torchvision ResNet34 file) whose encoder
+     holds the file's weights before the first step, with
+     --profile-epochs 1 leaving a trace that names CUDA kernels.
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -92,19 +110,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mri_acl_imagesegmentation_adsp_tpu_torch.cli import infer, launcher, serve
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli import (
+    infer, launcher, quantize, serve)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
-    load_model_from_ckpt)
+    load_model_from_ckpt, model_apply_fn)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
     SliceStore, gather_batch)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
     pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
+from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
+    QuantConfig, QuantizedUNet2D, int8_conv)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
     SURFACE_CHUNK, evaluate_volume, segment_volume_2d, segment_volumes_2d,
     slice_metrics, threshold_probs)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.torch_import import (
+    convert_resnet_encoder, load_torch_checkpoint)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
@@ -121,7 +144,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
     augment_batch)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
-    save_best)
+    load_best, save_best)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.engine import Engine
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
     LossManager)
@@ -129,8 +152,11 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
     make_optimizer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
     cuda_ms, host_us, kernel_trace)
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils.device import (
+    f32_on_card)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    component_masks, synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs)
+    component_masks, synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs,
+    torchvision_resnet_state_dict)
 
 WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -176,6 +202,10 @@ RESTORED_SLICES = 4        # N4 + NL-means card vs CPU on this many slices
 RESTORED_TOL = 1e-3        # their z-scored tensors, times 1 + max|t|
 CHAIN_RUNS = 5             # warm preprocess runs: their median is kept
 KERNEL_SOURCES = ("open_close", "label_prop")
+BF16_SPACINGS = 8          # bf16 card vs CPU: bf16 spacings at max |logit|
+QUANT_BATCH = (16, 1, 320, 320)
+QUANT_TIMED_RUNS = 10
+RESUME_SAVE_STEPS = 2      # steps between the resumed run's snapshots
 
 
 def emit(obj: dict) -> None:
@@ -553,7 +583,7 @@ def _serve_breakdown(runner, body: bytes) -> dict:
             "masks_to_host": t_d2h, "encode_response": t_enc}
 
 
-def _start_server(ckpt: str, dev: torch.device, batch_size: int = 16,
+def _start_server(ckpt: str | None, dev: torch.device, batch_size: int = 16,
                   **extra):
     server = serve.create_server(SimpleNamespace(
         ckpt=ckpt, host="127.0.0.1", port=0, batch_size=batch_size,
@@ -1652,6 +1682,367 @@ def phase_preprocess_rest(model: torch.nn.Module, dev: torch.device,
     return cc_row, prop_row, request["launches"]
 
 
+# --------------------------------------------------------------------------
+# Phase 9: the rest of the 2-D surface
+# --------------------------------------------------------------------------
+
+def _bf16_spacing(m: float) -> float:
+    """The gap between bf16 numbers at magnitude ``m``."""
+    return float(2.0 ** (np.floor(np.log2(m)) - 7))
+
+
+def _quant_batch(tmp: str) -> torch.Tensor:
+    """QUANT_BATCH slices of phase 6's training packs, on the CPU."""
+    with open(os.path.join(tmp, "lists", "train.txt"),
+              encoding="utf-8") as f:
+        src = SliceStore.from_files(f.read().split())
+    return torch.from_numpy(src.images[:QUANT_BATCH[0], None].copy())
+
+
+def bf16_checkpoint(dev: torch.device, ckpt: str, x: torch.Tensor) -> dict:
+    """The ``amp`` checkpoint's bf16 logits (``model_apply_fn``, as the CLI
+    and the daemon run it) card vs CPU, and its f32 logits on the card
+    (TF32 off) beside them."""
+    model, margs = load_model_from_ckpt(ckpt, dev)
+    cpu_model, _ = load_model_from_ckpt(ckpt, "cpu")
+    if not margs.get("amp") or model.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"phase 6's checkpoint loads as "
+                             f"{model.compute_dtype}, amp {margs.get('amp')}")
+    with torch.inference_mode():
+        card = model_apply_fn(model, lambda t: t)(x.to(dev)).cpu()
+        t1 = time.perf_counter()
+        cpu = model_apply_fn(cpu_model, lambda t: t)(x)
+        cpu_s = time.perf_counter() - t1
+        with f32_on_card(dev):
+            f32 = model(x.to(dev)).cpu()
+    scale = float(cpu.abs().max())
+    bound = BF16_SPACINGS * _bf16_spacing(scale)
+    d = (card - cpu).abs()
+    far = cpu.abs() > bound
+    out = {"batch": list(x.shape), "logits_max_abs": scale,
+           "bound": bound, "bound_rule": f"{BF16_SPACINGS} bf16 spacings at "
+                                         "max|logit|",
+           "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+           "bit_equal_share": float((d == 0).float().mean()),
+           "masks_differ_beyond_bound": int(((card > 0) != (cpu > 0))[
+               far].sum()),
+           "cpu_s": cpu_s,
+           "f32_vs_bf16_card_max_abs": float((f32 - card).abs().max()),
+           "f32_vs_bf16_card_mean_abs": float((f32 - card).abs().mean()),
+           "f32_vs_bf16_mask_pixels_differ": int(((f32 > 0) != (card > 0))
+                                                 .sum())}
+    if (not bool(torch.isfinite(card).all()) or out["max_abs_err"] > bound
+            or out["masks_differ_beyond_bound"]):
+        raise AssertionError(f"bf16 logits card vs CPU: {out}")
+    return out
+
+
+def _served_kspace(url: str, runner, seed: int) -> dict:
+    """One SERVE_SLICES-slice /v1/segment_kspace request against the
+    runner's in-process result, and the mask kernels' launches on it."""
+    kpair = synthetic_kspace_pairs(seed=seed, s=SERVE_SLICES, h=VOLUME[1],
+                                   w=VOLUME[2])
+    expected = runner.segment_kspace(kpair, 0.5, False)
+    reset_mask_launches()
+    t1 = time.perf_counter()
+    out = _post(url + "/v1/segment_kspace", _npz_bytes(kspace=kpair))
+    latency = time.perf_counter() - t1
+    launches = mask_launches()
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"a {runner.source} request launched the mask "
+                             f"kernels {launches} times, not once each")
+    for key in ("mask", "body_mask"):
+        if (out[key].shape != (SERVE_SLICES, 320, 320)
+                or not np.array_equal(out[key], expected[key])):
+            raise AssertionError(f"served {runner.source} {key} differs "
+                                 "from in-process")
+    return {"launches": launches, "latency_s": latency,
+            "mask_pixels_on": int(out["mask"].sum())}
+
+
+def bf16_served(dev: torch.device, ckpt: str) -> dict:
+    server, thread, url = _start_server(ckpt, dev)
+    try:
+        runner = server.RequestHandlerClass.runner
+        if runner.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"the daemon serves phase 6's checkpoint in "
+                                 f"{runner.compute_dtype}")
+        out = _served_kspace(url, runner, seed=400)
+    finally:
+        _stop_server(server, thread)
+    return {"compute_dtype": "bfloat16", **out}
+
+
+def int8_exact(dev: torch.device) -> dict:
+    """ResNet34's first decoder conv, K = 3*3*768, sums past 2^24: the
+    card's int32 sums against int64 numpy."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(90, 128, (2, 10, 10, 768))
+    x[0, :, :, ::7] = rng.integers(-127, 128, x[0, :, :, ::7].shape)
+    x[1] = -x[1]
+    w = rng.integers(90, 128, (3, 3, 768, 32))
+    w[..., ::5] = rng.integers(-127, 128, w[..., ::5].shape)
+    got = int8_conv(torch.from_numpy(x.astype(np.int8)).to(dev),
+                    torch.from_numpy(w.astype(np.int8)).to(dev), 1, 1)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = np.zeros((2, 10, 10, 32), np.int64)
+    for dy in range(3):
+        for dx in range(3):
+            want += np.einsum("nhwc,co->nhwo", xp[:, dy:dy + 10, dx:dx + 10],
+                              w[dy, dx])
+    got = got.cpu().numpy().astype(np.int64)
+    out = {"k": 3 * 3 * 768, "shape": [2, 10, 10, 768], "cout": 32,
+           "max_abs_sum": int(np.abs(want).max()),
+           "max_abs_err": int(np.abs(got - want).max())}
+    if out["max_abs_sum"] <= 2 ** 24 or out["max_abs_err"] != 0:
+        raise AssertionError(f"int8 convolution on the card: {out}")
+    return out
+
+
+def int8_card_vs_cpu(dev: torch.device, q: str, x: torch.Tensor) -> dict:
+    eng, tree, meta = quantize.load_engine(q, dev)
+    _, cpu_tree, _ = quantize.load_engine(q, "cpu")
+    card = eng.apply(tree, x.to(dev)).cpu()
+    t1 = time.perf_counter()
+    cpu = eng.apply(cpu_tree, x)
+    cpu_s = time.perf_counter() - t1
+    out = {"compute_dtype": meta["compute_dtype"], "mode": meta["mode"],
+           "max_abs_err": float((card - cpu).abs().max()),
+           "bit_equal": bool(torch.equal(card, cpu)),
+           "logits_max_abs": float(cpu.abs().max()), "cpu_s": cpu_s}
+    if not out["bit_equal"]:
+        raise AssertionError(f"int8 logits card vs CPU: {out}")
+    return out
+
+
+def infer_quantized(dev: torch.device, tmp: str, ckpt: str, q: str) -> dict:
+    """cli.infer --metrics on the val list: the checkpoint (bf16), the
+    artifact (int8) and the checkpoint quantized to folded."""
+    lst = os.path.join(tmp, "lists", "val.txt")
+    out = {}
+    for name, extra in (("bf16", ["--ckpt", ckpt]), ("int8_qtree",
+                                                     ["--qtree", q]),
+                        ("folded", ["--ckpt", ckpt, "--quant", "folded"])):
+        out_dir = os.path.join(tmp, "preds_q_" + name)
+        t1 = time.perf_counter()
+        rc = infer.main(["--list", lst, "--out-dir", out_dir, "--metrics",
+                         "--device", str(dev), *extra])
+        secs = time.perf_counter() - t1
+        with open(os.path.join(out_dir, "summary.json"),
+                  encoding="utf-8") as f:
+            summary = json.load(f)
+        if rc != 0 or not summary or not all(
+                np.isfinite(e[k]) for e in summary
+                for k in ("dice", "iou", "hd95", "assd")):
+            raise AssertionError(f"infer {name}: rc {rc}, {summary}")
+        out[name] = {"s": secs, "dice": [e["dice"] for e in summary],
+                     "hd95": [e["hd95"] for e in summary]}
+    return out
+
+
+def int8_served(dev: torch.device, q: str, x: torch.Tensor) -> dict:
+    """A --qtree daemon: one /v1/segment_kspace and one /v1/segment
+    request, each equal to in-process, and its /metricsz."""
+    server, thread, url = _start_server(None, dev, qtree=q)
+    try:
+        runner = server.RequestHandlerClass.runner
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        if health["source"] != "qtree":
+            raise AssertionError(f"/healthz: {health}")
+        kspace = _served_kspace(url, runner, seed=401)
+        vol = x[:SERVE_SLICES, 0].numpy()
+        reply = _post(url + "/v1/segment?probs=1", _npz_bytes(img=vol))
+        want = runner.segment(vol, 0.5, True)
+        if not (np.array_equal(reply["probs"], want["probs"])
+                and np.array_equal(reply["mask"], want["mask"])):
+            raise AssertionError("served int8 /v1/segment differs from "
+                                 "in-process")
+        metrics = _metricsz(url)
+        # the two requests over HTTP and their two in-process twins
+        if (metrics["serve_requests_total"] != 4
+                or metrics["serve_errors_total"] != 0):
+            raise AssertionError(f"/metricsz: {metrics}")
+    finally:
+        _stop_server(server, thread)
+    return {"compute_dtype": str(runner.compute_dtype), "kspace": kspace,
+            "segment_slices": int(vol.shape[0]), "metricsz": metrics}
+
+
+def time_batch(dev: torch.device, ckpt: str, q: str,
+               x: torch.Tensor) -> dict:
+    """Warm ms of one QUANT_BATCH batch (``cuda_ms``, host out of the
+    window) at f32 with TF32 off, bf16, folded bf16 and int8, with the
+    peak memory of each."""
+    model, _ = load_model_from_ckpt(ckpt, dev)
+    eng, tree, _ = quantize.load_engine(q, dev)
+    folded = QuantizedUNet2D(eng.encoder, eng.classes, eng.decoder_channels,
+                             QuantConfig("folded", eng.config.compute_dtype),
+                             arch=eng.arch)
+    xd = x.to(dev)
+    bf16 = model_apply_fn(model, lambda t: t)
+    runs = {"f32": lambda: model(xd), "bf16": lambda: bf16(xd),
+            "folded": lambda: folded.apply(tree, xd),
+            "int8": lambda: eng.apply(tree, xd)}
+    out = {}
+    with torch.inference_mode(), f32_on_card(dev):
+        for name, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out[name] = cuda_ms(fn, cold=False, iters=QUANT_TIMED_RUNS)
+            out[name]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                     / 2 ** 30)
+    late = {k: v["late_runs"] for k, v in out.items() if v["late_runs"]}
+    if late:
+        raise AssertionError(f"host time inside the timed window: {late}")
+    return {"batch": list(x.shape), "ms": {k: v["ms"] for k, v in
+                                           out.items()}, "runs": out}
+
+
+def _launch_flags(tmp: str, dev: torch.device, out_dir: str,
+                  *extra) -> list:
+    return ["--skip-preprocess", "--skip-split",
+            "--train-list", os.path.join(tmp, "lists", "train.txt"),
+            "--val-list", os.path.join(tmp, "lists", "val.txt"),
+            "--out-dir", out_dir, "--epochs", "2", "--batch-size", "8",
+            "--store-dtype", "bfloat16", "--logger", "noop",
+            "--device", str(dev), *extra]
+
+
+def _trainer(tmp: str, dev: torch.device, out_dir: str, *extra):
+    """The launcher's trainer of these flags, not yet run."""
+    flags = _launch_flags(tmp, dev, out_dir, *extra)
+    ns = launcher.build_parser().parse_args(flags)
+    return launcher.build_trainer(ns.train_list, ns.val_list, ns.out_dir, ns)
+
+
+def resume_run(tmp: str, dev: torch.device) -> dict:
+    """A launcher run preempted by ``request_preempt()`` during its first
+    chunk, snapshotting at the chunk's end, then resumed with --resume:
+    history.json and best.ckpt bit-equal to a straight run of the same
+    flags without chunks. cuDNN deterministic, its autotuner off."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    straight, cut = os.path.join(tmp, "straight"), os.path.join(tmp, "cut")
+    try:
+        t1 = time.perf_counter()
+        if launcher.main(_launch_flags(tmp, dev, straight)) != 0:
+            raise AssertionError("the straight launcher run failed")
+        straight_s = time.perf_counter() - t1
+        t = _trainer(tmp, dev, cut, "--save-resume-steps",
+                     str(RESUME_SAVE_STEPS))
+        real = t.engine.train_steps
+
+        def preempting(store, perm, gen):
+            out = real(store, perm, gen)
+            t.request_preempt()
+            return out
+        t.engine.train_steps = preempting
+        first = t.run()
+        if not first["summary"].get("preempted") or first["history"]:
+            raise AssertionError(f"the run was not cut in its first epoch: "
+                                 f"{first['summary']}")
+        snaps = sorted(os.listdir(os.path.join(cut, "checkpoints")))
+        if launcher.main(_launch_flags(
+                tmp, dev, cut, "--save-resume-steps", str(RESUME_SAVE_STEPS),
+                "--resume")) != 0:
+            raise AssertionError("the resumed launcher run failed")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    hist = [json.load(open(os.path.join(d, "history.json"),
+                           encoding="utf-8")) for d in (straight, cut)]
+    best = [load_best(os.path.join(d, "best.ckpt")) for d in (straight, cut)]
+    differ = [k for k in best[0] if not torch.equal(best[0][k], best[1][k])]
+    out = {"train_slices": t.train_store.num_slices,
+           "steps_per_epoch": t.train_store.num_slices // 8,
+           "snapshots_at_cut": snaps, "history": hist[1],
+           "history_equal": hist[0] == hist[1],
+           "best_ckpt_tensors": len(best[0]),
+           "best_ckpt_tensors_differ": differ, "straight_s": straight_s}
+    if not out["history_equal"] or differ or best[0].keys() != best[1].keys():
+        raise AssertionError(f"resumed run differs from straight: {out}")
+    return out
+
+
+def encoder_weights_and_profile(tmp: str, dev: torch.device) -> dict:
+    """--encoder-weights with a seeded torchvision ResNet34 file: the
+    encoder before the first step holds the file's weights (the 1-channel
+    stem as the file's three channels summed in order), the rest the
+    seeded init; one epoch with --profile-epochs 1 leaves a trace naming
+    CUDA kernels."""
+    path = os.path.join(tmp, "resnet34_torchvision.pt")
+    sd = torchvision_resnet_state_dict("resnet34", seed=7)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    out_dir = os.path.join(tmp, "pretrained")
+    t = _trainer(tmp, dev, out_dir, "--encoder-weights", path, "--epochs",
+                 "1", "--profile-epochs", "1")
+    enc = {k: v.cpu() for k, v in t.model.encoder.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    want = convert_resnet_encoder(load_torch_checkpoint(path), "resnet34",
+                                  stem_in_ch=1)
+    stem = sd["conv1.weight"]
+    stem = (stem[:, 0:1] + stem[:, 1:2]) + stem[:, 2:3]
+    differ = [k for k in want if not torch.equal(enc[k], want[k])]
+    if (differ or enc.keys() != want.keys() or not np.array_equal(
+            enc["stem_conv.weight"].numpy(), stem)
+            or not torch.equal(enc["blocks.15.conv1.weight"], torch.from_numpy(
+                sd["layer4.2.conv2.weight"]))):
+        raise AssertionError(f"imported encoder differs from the file: "
+                             f"{differ[:5]}")
+    t.run()
+    traces = sorted(os.listdir(os.path.join(out_dir, "profile")))
+    with open(os.path.join(out_dir, "profile", traces[0]),
+              encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if traces != ["epoch_001.pt.trace.json"] or not kernels:
+        raise AssertionError(f"profile: {traces}, {len(kernels)} kernels")
+    return {"encoder_tensors": len(want), "traces": traces,
+            "cuda_kernel_events": len(kernels),
+            "distinct_cuda_kernels": len(set(kernels)),
+            "history": t.history}
+
+
+def phase_rest_2d(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """Phase 9: returns the mask kernels' launches on its two served
+    /v1/segment_kspace requests, by route."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    ckpt = os.path.join(tmp, "run", "best.ckpt")
+    x = _quant_batch(tmp)
+    out = {"bf16_checkpoint": bf16_checkpoint(dev, ckpt, x),
+           "bf16_served": bf16_served(dev, ckpt),
+           "int8_exact": int8_exact(dev)}
+    q = os.path.join(tmp, "quant_int8.npz")
+    t1 = time.perf_counter()
+    if quantize.main(["--ckpt", ckpt, "--list",
+                      os.path.join(tmp, "lists", "val.txt"), "--out", q,
+                      "--device", str(dev)]) != 0:
+        raise AssertionError("cli.quantize failed")
+    with open(q + ".meta.json", encoding="utf-8") as f:
+        meta = json.load(f)
+    if meta["compute_dtype"] != "bfloat16" or meta["mode"] != "int8":
+        raise AssertionError(f"artifact meta: {meta}")
+    out["quantize"] = {"s": time.perf_counter() - t1, "meta": meta,
+                       "bytes": os.path.getsize(q)}
+    out["int8_card_vs_cpu"] = int8_card_vs_cpu(dev, q, x)
+    out["infer"] = infer_quantized(dev, tmp, ckpt, q)
+    out["int8_served"] = int8_served(dev, q, x)
+    out["timing"] = time_batch(dev, ckpt, q, x)
+    out["resume"] = resume_run(tmp, dev)
+    out["encoder_weights_profile"] = encoder_weights_and_profile(tmp, dev)
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 9 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
+    emit({"phase": "rest_2d", "seconds": time.perf_counter() - t0, **out})
+    return {"serve_bf16": out["bf16_served"]["launches"],
+            "serve_qtree": out["int8_served"]["kspace"]["launches"]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -1674,11 +2065,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         by_path["train"] = phase_train(dev, defaults, tmp)
         by_path["evaluate_serve"] = phase_evaluate(model, dev, defaults, tmp)
-    if set(by_path["evaluate_serve"].values()) != {1}:
-        raise AssertionError(f"phase 7 launched the mask kernels "
-                             f"{by_path['evaluate_serve']} times, not once")
-    cc_row, prop_row, by_path["multicoil_serve"] = phase_preprocess_rest(
-        model, dev, defaults, chain_s)
+        if set(by_path["evaluate_serve"].values()) != {1}:
+            raise AssertionError(f"phase 7 launched the mask kernels "
+                                 f"{by_path['evaluate_serve']} times, not "
+                                 "once")
+        cc_row, prop_row, by_path["multicoil_serve"] = phase_preprocess_rest(
+            model, dev, defaults, chain_s)
+        by_path.update(phase_rest_2d(dev, defaults, tmp))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

@@ -7,10 +7,18 @@ pred_mask.npy`` (and ``probs.npz`` with ``--save-probs``), with
 ``--metrics`` the volume's Dice, IoU, HD95 and ASSD against the packed mask
 (``infer/segment.py:evaluate_volume``), and ``<out-dir>/summary.json``.
 
+A checkpoint trained with ``amp`` runs in bf16 (``torch.autocast``), as the
+JAX CLI builds its model with ``dtype=bfloat16``; any other runs in f32
+with TF32 off. ``--quant int8|folded`` quantizes the checkpoint on the
+first listed volume's first 16 slices (``infer/quant.py``); ``--qtree``
+serves a ``cli.quantize`` artifact, with no checkpoint needed, and an
+explicit ``--quant`` overrides the artifact's mode.
+
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer \\
       --ckpt runs/unet2d/best.ckpt --list lists/val.txt --out-dir preds \\
-      [--metrics] [--tta hflip] [--batch-size 16] [--device cuda]
+      [--metrics] [--tta hflip] [--batch-size 16] [--device cuda] \\
+      [--quant none|int8|folded] [--qtree quant_int8.npz]
 """
 
 from __future__ import annotations
@@ -18,11 +26,13 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..data.hbm_loader import read_list
+from ..infer.quant import QuantConfig, QuantizedUNet2D
 from ..infer.segment import evaluate_volume, segment_volume_2d, threshold_probs
 from ..models.factory import build_unet
 from ..train import checkpoint as ckpt_lib
@@ -32,7 +42,9 @@ from ..utils.imagenet import make_input_norm
 
 def load_model_from_ckpt(ckpt_path: str, device: str | torch.device = "cuda"):
     """Rebuild the model from ``<ckpt>.args.json``, load its weights onto
-    ``device`` in eval mode. Returns ``(model, args)``."""
+    ``device`` in eval mode. Returns ``(model, args)``; the model's
+    ``compute_dtype`` is bf16 for an ``amp`` checkpoint, else f32, and
+    :func:`model_apply_fn` runs it so."""
     dev = resolve_device(device)
     with open(ckpt_path + ".args.json", "r", encoding="utf-8") as f:
         args = json.load(f)
@@ -42,18 +54,34 @@ def load_model_from_ckpt(ckpt_path: str, device: str | torch.device = "cuda"):
                        args.get("encoder", "resnet34"), "none", in_ch=in_ch,
                        classes=int(args.get("classes", 1)))
     model.load_state_dict(ckpt_lib.load_best(ckpt_path))
+    model.compute_dtype = (torch.bfloat16 if args.get("amp")
+                           else torch.float32)
     return model.to(dev).eval(), args
+
+
+def model_apply_fn(model: torch.nn.Module, norm: Callable) -> Callable:
+    """``x -> f32 logits`` of ``model`` on normalized ``x`` in its
+    ``compute_dtype``: under bf16 autocast for bf16 (convolutions, the
+    BatchNorm affine and the activations in bf16), plain f32 otherwise.
+    The autocast is entered in the calling thread, so the function runs as
+    well on a serving worker thread."""
+    bf16 = getattr(model, "compute_dtype", torch.float32) == torch.bfloat16
+    dev_type = next(model.parameters()).device.type
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(dev_type, dtype=torch.bfloat16, enabled=bf16):
+            return model(norm(x)).float()
+    return apply_fn
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         "Whole-volume segmentation inference (PyTorch)", allow_abbrev=False,
         epilog="Not ported, so refused as unrecognized arguments: the JAX "
-               "CLI's --quant, --qtree, --data-parallel, --ckpt3d and "
-               "--spatial-parallel.")
-    p.add_argument("--ckpt", required=True,
-                   help="best checkpoint (train/checkpoint.py format) with "
-                        "its .args.json beside it")
+               "CLI's --ckpt3d and --spatial-parallel (the 3-D path).")
+    p.add_argument("--ckpt", help="best checkpoint (train/checkpoint.py "
+                                  "format) with its .args.json beside it; "
+                                  "optional with --qtree")
     p.add_argument("--list", dest="list_txt", required=True,
                    help="txt file of volume.npz paths")
     p.add_argument("--out-dir", default="preds")
@@ -65,20 +93,64 @@ def main(argv=None) -> int:
     p.add_argument("--tta", choices=("none", "hflip"), default="none",
                    help="test-time augmentation: average probabilities "
                         "over the horizontal-flip orbit (2x compute)")
+    p.add_argument("--quant", choices=("none", "int8", "folded"),
+                   default="none",
+                   help="post-training quantized inference "
+                        "(infer/quant.py): int8 = w8a8 convs with int32 "
+                        "sums, folded = BN-folded convs in the compute "
+                        "dtype")
+    p.add_argument("--qtree",
+                   help="quantized artifact from cli.quantize; serves "
+                        "without the checkpoint")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="devices to shard each batch over; only 1 is "
+                        "ported")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     args = p.parse_args(argv)
+    if args.data_parallel != 1:
+        p.error(f"--data-parallel {args.data_parallel}: multi-device "
+                "inference is not ported (ROADMAP.md Queue 1 item 14)")
+    if not args.ckpt and not args.qtree:
+        p.error("one of --ckpt / --qtree is required")
 
     dev = resolve_device(args.device)
-    model, margs = load_model_from_ckpt(args.ckpt, dev)
-    norm = make_input_norm(bool(margs.get("imagenet_norm")))
+    if args.qtree:
+        from .quantize import load_engine
+        eng, qtree, meta = load_engine(args.qtree, dev)
+        if args.quant not in ("none", meta["mode"]):
+            # an explicit --quant overrides the artifact's mode
+            eng = QuantizedUNet2D(
+                meta["encoder"], meta["classes"],
+                tuple(meta["decoder_channels"]),
+                QuantConfig(mode=args.quant,
+                            compute_dtype=eng.config.compute_dtype),
+                arch=meta["arch"])
+        k, classes = int(meta["k"]), int(meta["classes"])
+        norm = make_input_norm(bool(meta["imagenet_norm"]))
 
-    def apply_fn(x):
-        return model(norm(x))
+        def apply_fn(x):
+            return eng.apply(qtree, norm(x))
+    else:
+        model, margs = load_model_from_ckpt(args.ckpt, dev)
+        k, classes = int(margs.get("k", 1)), int(margs.get("classes", 1))
+        norm = make_input_norm(bool(margs.get("imagenet_norm")))
+        if args.quant != "none":
+            if margs.get("model", "unet") not in ("unet", "unetpp"):
+                raise SystemExit("--quant supports the unet/unetpp families")
+            from .quantize import calibration_batches
+            calib = calibration_batches(args.list_txt, k, norm, 1, 16, dev)
+            eng, qtree = QuantizedUNet2D.from_model(
+                model, calib, QuantConfig(mode=args.quant,
+                                          compute_dtype=model.compute_dtype))
+
+            def apply_fn(x):
+                return eng.apply(qtree, norm(x))
+        else:
+            apply_fn = model_apply_fn(model, norm)
 
     with f32_on_card(dev):
-        return _run(args, apply_fn, int(margs.get("k", 1)),
-                    int(margs.get("classes", 1)), dev)
+        return _run(args, apply_fn, k, classes, dev)
 
 
 def _run(args, apply_fn, k: int, classes: int, dev: torch.device) -> int:

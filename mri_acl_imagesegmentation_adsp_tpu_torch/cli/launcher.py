@@ -12,7 +12,11 @@ explicit-flag check.
 The preprocess stage reads fastMRI ``.h5`` files, whose adapters are not
 ported yet: it raises. Packs made by ``data/packer.py:pack_kspace_volume``
 train with ``--skip-preprocess``. The TPU extension flags are accepted and
-passed on; the trainer refuses those it cannot run.
+passed on: ``--resume``, ``--save-resume-every``, ``--save-resume-steps``,
+``--resume-keep``, ``--preempt-save``, ``--profile-epochs`` and
+``--encoder-weights <checkpoint>`` run; the trainer refuses the others
+(``--ckpt-backend orbax``, ``--ckpt-async``, ``--remat``,
+``--store-sharded``, ``--data-parallel`` above 1).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.launcher \\
       --skip-preprocess --artifact-dir artifacts --out-dir runs/port \\
@@ -102,14 +106,20 @@ def generate_split(artifact_dir: Path, list_dir: Path, ratio: float,
     return out[0], out[1]
 
 
-def run_training(train_list: Path, val_list: Path, out_dir: Path,
-                 args: argparse.Namespace) -> dict:
-    """Build ``UNet2DArgs`` from the parsed flags and train on
-    ``args.device``."""
+def build_trainer(train_list: Path, val_list: Path, out_dir: Path,
+                  args: argparse.Namespace) -> UNet2DTrainer:
+    """The trainer of the parsed flags on ``args.device``, not yet run: a
+    caller may hold it, e.g. to ``request_preempt()`` it."""
     fields = {name: getattr(args, name) for name in _FORWARDED_TRAIN_FIELDS}
     return UNet2DTrainer(UNet2DArgs(
         train_list=str(train_list), val_list=str(val_list),
-        out_dir=str(out_dir), **fields), device=args.device).run()
+        out_dir=str(out_dir), **fields), device=args.device)
+
+
+def run_training(train_list: Path, val_list: Path, out_dir: Path,
+                 args: argparse.Namespace) -> dict:
+    """Build the trainer of the parsed flags and train."""
+    return build_trainer(train_list, val_list, out_dir, args).run()
 
 
 # ---------------------------------------------------------------------------

@@ -28,14 +28,23 @@ once and answers whole-volume requests on one device:
 ``/v1/segment`` requests that arrive within the window into one run of
 batches (``segment_volumes_2d``) on a dispatcher thread that owns the
 device; each request gets its own result, equal to the per-request path up
-to the batch composition. Bad input answers 400, any other failure 500. Not
-ported (``main`` has no flag for them): quantized artifacts (--qtree), data
-parallelism, and the recon and classify tasks.
+to the batch composition. Bad input answers 400, any other failure 500.
+
+The model runs in its checkpoint's compute dtype: bf16 autocast for an
+``amp`` checkpoint, as the JAX daemon builds it with ``dtype=bfloat16``, f32
+with TF32 off otherwise (``cli/infer.py:model_apply_fn``). ``--qtree``
+serves a ``cli.quantize`` artifact (int8 or folded, in the artifact's
+compute dtype) through the same runner, micro-batcher and TTA, with
+``source: "qtree"`` in ``/healthz``. Not ported (``main`` has no flag for
+them): the recon and classify tasks (``--task``); ``--data-parallel`` above
+1 raises.
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
       --ckpt best.ckpt --port 8080 [--device cuda] \\
       [--warmup-shape 8,320,320] [--tta hflip] [--microbatch-window-ms 5]
+  python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
+      --qtree quant_int8.npz --port 8080 [--device cuda]
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..infer.segment import (segment_volume_2d, segment_volumes_2d,
 from ..ops.kernels import morphology
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
-from .infer import load_model_from_ckpt
+from .infer import load_model_from_ckpt, model_apply_fn
 
 
 class _MicroBatcher:
@@ -153,15 +162,20 @@ class _MicroBatcher:
 
 
 class _ModelRunner:
-    """Owns the model's apply function and metadata; serializes the device."""
+    """Owns the model's apply function and metadata; serializes the device.
+    ``compute_dtype`` is the dtype ``apply_fn`` computes in (bf16 for an
+    ``amp`` checkpoint); the segmentation and TTA code take it from there
+    and have no setting of their own."""
 
     task = "segment"
 
     def __init__(self, apply_fn, k: int, classes: int, source: str,
                  batch_size: int, pre_out_size=(320, 320),
                  device: str | torch.device = "cuda",
-                 microbatch_window_ms: float = 0.0):
+                 microbatch_window_ms: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         self.apply_fn = apply_fn
+        self.compute_dtype = compute_dtype
         self.k = k
         self.classes = classes
         self.source = source
@@ -273,22 +287,36 @@ class _ModelRunner:
 
 
 def _build_runner(args) -> _ModelRunner:
+    """The runner of ``--qtree`` when given, else of ``--ckpt``."""
     device = resolve_device(getattr(args, "device", "cuda"))
-    model, margs = load_model_from_ckpt(args.ckpt, device)
-    norm = make_input_norm(bool(margs.get("imagenet_norm")))
-    classes = int(margs.get("classes", 1))
+    if int(getattr(args, "data_parallel", 1) or 1) != 1:
+        raise ValueError(f"--data-parallel {args.data_parallel}: multi-"
+                         "device serving is not ported (ROADMAP.md Queue 1 "
+                         "item 14)")
+    if getattr(args, "qtree", None):
+        from .quantize import load_engine
+        eng, qtree, meta = load_engine(args.qtree, device)
+        norm = make_input_norm(bool(meta.get("imagenet_norm")))
 
-    def apply_fn(x):
-        return model(norm(x))
+        def apply_fn(x):
+            return eng.apply(qtree, norm(x))
+        k, classes, source = int(meta["k"]), int(meta["classes"]), "qtree"
+        dtype = eng.config.compute_dtype
+    else:
+        model, margs = load_model_from_ckpt(args.ckpt, device)
+        apply_fn = model_apply_fn(
+            model, make_input_norm(bool(margs.get("imagenet_norm"))))
+        k, classes = int(margs.get("k", 1)), int(margs.get("classes", 1))
+        source, dtype = "ckpt", model.compute_dtype
 
     pre_out = tuple(int(v) for v in str(
         getattr(args, "pre_out_size", "") or "320,320").split(","))
     return _ModelRunner(
         tta_wrap(apply_fn, classes, getattr(args, "tta", "none") or "none"),
-        int(margs.get("k", 1)), classes, "ckpt", args.batch_size,
-        pre_out_size=pre_out, device=device,
-        microbatch_window_ms=float(
-            getattr(args, "microbatch_window_ms", 0.0) or 0.0))
+        k, classes, source, args.batch_size, pre_out_size=pre_out,
+        device=device, microbatch_window_ms=float(
+            getattr(args, "microbatch_window_ms", 0.0) or 0.0),
+        compute_dtype=dtype)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -382,9 +410,10 @@ def create_server(args) -> ThreadingHTTPServer:
     bind the server (``args.port=0`` binds a free port). Split from
     ``main`` so a caller can drive it in-process.
 
-    The daemon serves f32: on a card it turns TF32 off for the process's
+    On a card the daemon turns TF32 off for the process's f32
     convolutions and matmuls (``utils/device.py:f32_on_card``) until its
-    runner is closed, which puts the caller's flags back."""
+    runner is closed, which puts the caller's flags back; a bf16 model or
+    artifact computes in bf16 all the same."""
     runner = _build_runner(args)
     runner._on_close.enter_context(f32_on_card(runner.device))
     if runner.device.type == "cuda":
@@ -416,10 +445,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         "Segmentation serving daemon (PyTorch)",
         epilog="Not ported, so refused as unrecognized arguments: the JAX "
-               "daemon's --task, --qtree and --data-parallel.")
-    p.add_argument("--ckpt", required=True,
+               "daemon's --task (the recon and classify runners).")
+    p.add_argument("--ckpt",
                    help="best checkpoint (train/checkpoint.py format) with "
                         "its .args.json beside it")
+    p.add_argument("--qtree", help="quantized artifact from cli.quantize "
+                                   "(serves without the checkpoint)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="devices to shard each batch over; only 1 is "
+                        "ported")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--batch-size", type=int, default=16)
@@ -438,13 +472,20 @@ def main(argv=None) -> int:
                         "window into one run of batches (0 = off; try 5 "
                         "under concurrent load)")
     args = p.parse_args(argv)
+    if args.data_parallel != 1:
+        p.error(f"--data-parallel {args.data_parallel}: multi-device "
+                "serving is not ported (ROADMAP.md Queue 1 item 14)")
+    if not args.ckpt and not args.qtree:
+        p.error("one of --ckpt / --qtree is required")
 
     server = create_server(args)
     install_drain_handler(server)
     host, port = server.server_address[:2]
-    device = server.RequestHandlerClass.runner.device
-    print(json.dumps({"serving": f"http://{host}:{port}", "source": "ckpt",
-                      "device": str(device)}), flush=True)
+    runner = server.RequestHandlerClass.runner
+    print(json.dumps({"serving": f"http://{host}:{port}",
+                      "source": runner.source, "device": str(runner.device),
+                      "compute_dtype": str(runner.compute_dtype)}),
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -34,23 +34,27 @@ def build_unet(model: str = "unet", encoder: str = "resnet34",
                encoder_weights: str = "none", in_ch: int = 1,
                classes: int = 1, **kw) -> nn.Module:
     """Build a 2-D segmentation U-Net (``unet``) or UNet++ (``unetpp``,
-    ``unetplusplus``) with random weights.
+    ``unetplusplus``) with torch's default init.
 
     ``encoder_weights`` is validated as the JAX factory does; a checkpoint
-    path (a torch ResNet to import into the encoder) is not ported yet and
-    raises."""
-    if validate_encoder_weights(encoder_weights) is not None:
-        raise NotImplementedError(
-            "encoder_weights from a checkpoint is not ported yet "
-            "(models/torch_import.py); use 'none'")
+    path loads a torchvision-layout ResNet into the encoder
+    (``models/torch_import.py``), so only the decoder and head keep their
+    fresh values. The trainer seeds its own init and imports the encoder
+    after it."""
+    path = validate_encoder_weights(encoder_weights)
     if encoder not in RESNET_CFG:
         raise ValueError(f"unsupported encoder {encoder!r}; "
                          f"one of {sorted(RESNET_CFG)}")
     m = model.lower()
     if m == "unet":
-        return ResNetEncoderUNet(encoder=encoder, in_ch=in_ch,
-                                 classes=classes, **kw)
-    if m in ("unetpp", "unetplusplus"):
-        return UNetPlusPlus(encoder=encoder, in_ch=in_ch, classes=classes,
-                            **kw)
-    raise ValueError(f"Unsupported model: {model}")
+        net = ResNetEncoderUNet(encoder=encoder, in_ch=in_ch,
+                                classes=classes, **kw)
+    elif m in ("unetpp", "unetplusplus"):
+        net = UNetPlusPlus(encoder=encoder, in_ch=in_ch, classes=classes,
+                           **kw)
+    else:
+        raise ValueError(f"Unsupported model: {model}")
+    if path is not None:
+        from .torch_import import apply_encoder_weights
+        apply_encoder_weights(net, path, encoder)
+    return net

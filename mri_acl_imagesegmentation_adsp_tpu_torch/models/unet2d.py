@@ -173,6 +173,8 @@ class ResNetEncoderUNet(nn.Module):
                  classes: int = 1,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
         super().__init__()
+        self.encoder_name, self.classes = encoder, int(classes)
+        self.decoder_channels = tuple(decoder_channels)
         self.encoder = ResNetEncoder(encoder, in_ch)
         ch = self.encoder.channels
         # skips, deepest first, excluding the bottleneck f5: f4 f3 f2 f1 None
@@ -214,6 +216,8 @@ class UNetPlusPlus(nn.Module):
                  classes: int = 1,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
         super().__init__()
+        self.encoder_name, self.classes = encoder, int(classes)
+        self.decoder_channels = tuple(decoder_channels)
         self.encoder = ResNetEncoder(encoder, in_ch)
         d = self.DEPTH
         row_ch = list(decoder_channels)[:d][::-1]     # shallow -> deep

@@ -1,10 +1,15 @@
-"""Training loggers: CSV files and a no-op sink.
+"""Training loggers: CSV files, TensorBoard event files and a no-op sink.
 
-Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/loggers.py:19-107,
-160-211``. A run writes ``history_epoch.csv`` (epoch, time_s, train_loss,
-val_loss, val_dice, val_iou, lr), ``history_step.csv`` (global_step, epoch,
-lr, train_loss_step) and ``metrics.json``, the reference's run-artifact
-layout. The TensorBoard sink is not ported yet, and asking for it raises.
+Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/loggers.py``
+(:19-211). The CSV sink writes ``history_epoch.csv`` (epoch, time_s,
+train_loss, val_loss, val_dice, val_iou, lr), ``history_step.csv``
+(global_step, epoch, lr, train_loss_step) and ``metrics.json``, the
+reference's run-artifact layout. The TensorBoard sink writes event files
+under ``<out>/tb``: scalars under ``train/`` and ``val/``, the run's meta
+as text, validation probability images. ``--logger csv+tb`` fans out to
+both. Where ``torch.utils.tensorboard`` cannot be imported, ``tb`` warns
+and writes the CSV files instead, as the JAX package's ``make_logger``
+does.
 """
 
 from __future__ import annotations
@@ -73,17 +78,81 @@ class CSVLoggerAdapter:
         pass  # each append opens and closes its file
 
 
+class TensorBoardLogger:
+    """Event files under ``<out_dir>/tb`` (``torch.utils.tensorboard``)."""
+
+    def __init__(self, out_dir: str):
+        from torch.utils.tensorboard import SummaryWriter
+        self._w = SummaryWriter(log_dir=str(Path(out_dir) / "tb"))
+
+    def log_steps(self, *, start_step: int, epoch: int, lr: float,
+                  losses) -> None:
+        for i, loss in enumerate(losses):
+            self._w.add_scalar("train/loss_step", float(loss), start_step + i)
+
+    def log_epoch(self, *, epoch: int, time_s: float, train_loss: float,
+                  val_loss: float, val_dice: float, val_iou: float,
+                  lr: float) -> None:
+        for tag, v in (("train/loss", train_loss), ("val/loss", val_loss),
+                       ("val/dice", val_dice), ("val/iou", val_iou),
+                       ("train/lr", lr), ("time/epoch_s", time_s)):
+            self._w.add_scalar(tag, v, epoch)
+
+    def log_meta(self, meta: Dict[str, Any]) -> None:
+        self._w.add_text("meta", json.dumps(meta, indent=2, default=str))
+
+    def log_images(self, tag: str, images, step: int) -> None:
+        """``images``: ``(N, H, W)`` floats in [0, 1]."""
+        import numpy as np
+        arr = np.asarray(images)
+        for i in range(arr.shape[0]):
+            self._w.add_image(f"{tag}/{i}", arr[i][None], step)
+
+    def close(self):
+        self._w.close()
+
+
+class MultiLogger:
+    """Every logging call to each of several sinks (``csv+tb``)."""
+
+    def __init__(self, *loggers):
+        self.loggers = loggers
+
+    def _fan(self, name, *a, **kw):
+        for lg in self.loggers:
+            fn = getattr(lg, name, None)
+            if fn is not None:
+                fn(*a, **kw)
+
+    def log_steps(self, **kw): self._fan("log_steps", **kw)
+    def log_epoch(self, **kw): self._fan("log_epoch", **kw)
+    def log_meta(self, meta): self._fan("log_meta", meta)
+    def log_images(self, tag, images, step):
+        self._fan("log_images", tag, images, step)
+    def close(self): self._fan("close")
+
+
 def make_logger(kind: str, out_dir: str):
-    """``noop`` or ``csv``; ``tb`` and ``csv+tb`` raise until the
-    TensorBoard sink is ported."""
+    """``noop``, ``csv``, ``tb`` or ``csv+tb`` (``,`` also separates)."""
     parts = [p for p in kind.replace(",", "+").split("+") if p]
-    if "tb" in parts:
-        raise NotImplementedError(
-            "the TensorBoard logger (train/loggers.py TensorBoardLogger) is "
-            "not ported yet; use --logger csv or noop")
+    sinks = []
     for p in parts:
-        if p not in ("csv", "noop"):
+        if p == "csv":
+            sinks.append(CSVLoggerAdapter(out_dir))
+        elif p == "tb":
+            try:
+                sinks.append(TensorBoardLogger(out_dir))
+            except ImportError as exc:
+                # the JAX package's rule: keep the run, log to CSV instead
+                import warnings
+                warnings.warn(f"TensorBoard logger unavailable ({exc}); "
+                              "falling back to CSV for this sink")
+                if "csv" not in parts:   # no doubled CSV rows on csv+tb
+                    sinks.append(CSVLoggerAdapter(out_dir))
+        elif p != "noop":
             raise ValueError(f"unknown logger kind {p!r}")
-    if "csv" in parts:
-        return CSVLoggerAdapter(out_dir)
-    return NoOpLogger()
+    if not sinks:
+        return NoOpLogger()
+    if len(sinks) == 1:
+        return sinks[0]
+    return MultiLogger(*sinks)

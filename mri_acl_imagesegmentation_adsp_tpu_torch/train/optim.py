@@ -77,6 +77,27 @@ class ClippedAdamW:
         torch._foreach_mul_(upd, self.lr)
         torch._foreach_sub_(self.params, upd)
 
+    def state_dict(self) -> dict:
+        """The moments and the step count (optax's ``ScaleByAdamState``);
+        the learning rate is the schedule's, set each epoch."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": int(self.count)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in, onto the parameters' devices."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(
+                self.nu):
+            raise ValueError(f"optimizer state for {len(state['mu'])} "
+                             f"parameters, not {len(self.mu)}")
+        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            if dst.shape != src.shape:
+                raise ValueError(f"optimizer moment of shape "
+                                 f"{tuple(src.shape)}, not "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(state["count"])
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    weight_decay: float, max_grad_norm: float) -> ClippedAdamW:

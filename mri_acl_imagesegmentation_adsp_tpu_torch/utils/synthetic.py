@@ -5,8 +5,9 @@ The port's own copy of ``tests/oracles.py:122-140`` (``synthetic_knee``,
 background with sparse bright specks, like a magnitude MRI slice, and its
 centered orthonormal 2-D FFT as a fastMRI-style ``(S, H, W, 2)`` float32
 real pair; multi-coil k-space, ``(S, C, H, W, 2)``, of the same slices
-seen through smooth complex coil sensitivities; and the masks that hold the
-connected-components kernel at its edges."""
+seen through smooth complex coil sensitivities; the masks that hold the
+connected-components kernel at its edges; and a seeded ResNet state_dict
+in torchvision's layout, the kind of file ``encoder_weights`` loads."""
 
 from __future__ import annotations
 
@@ -134,3 +135,53 @@ def component_masks(rng: np.random.Generator,
     frame[[0, -1], :] = frame[:, [0, -1]] = True
     cases.append(("borders", np.stack([edges, frame])))
     return cases
+
+
+def torchvision_resnet_state_dict(encoder: str = "resnet34", seed: int = 0,
+                                  in_ch: int = 3) -> dict:
+    """``{name: float32 array}`` of a ResNet18/34/50 in torchvision's key
+    layout (``conv1``, ``bn1``, ``layer{s}.{b}.conv{i}`` / ``bn{i}`` /
+    ``downsample.{0,1}``, ``fc``), seeded: He-normal convs, BN affines and
+    running statistics away from the identity."""
+    from ..models.unet2d import RESNET_CFG
+    rng = np.random.default_rng(seed)
+    sd: dict = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = (rng.standard_normal((cout, cin, k, k))
+                                * np.sqrt(2.0 / (cin * k * k))
+                                ).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{name}.bias"] = (0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        sd[f"{name}.running_mean"] = (0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c).astype(
+            np.float32)
+        sd[f"{name}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+    blocks, bottleneck = RESNET_CFG[encoder]
+    conv("conv1", 64, in_ch, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage, (n, width) in enumerate(zip(blocks, (64, 128, 256, 512)),
+                                       start=1):
+        for b in range(n):
+            stride = 2 if (stage > 1 and b == 0) else 1
+            p = f"layer{stage}.{b}"
+            cout = width * 4 if bottleneck else width
+            shapes = ([(width, cin, 1), (width, width, 3), (cout, width, 1)]
+                      if bottleneck else [(width, cin, 3), (width, width, 3)])
+            for i, (o, c, k) in enumerate(shapes, start=1):
+                conv(f"{p}.conv{i}", o, c, k)
+                bn(f"{p}.bn{i}", o)
+            if stride != 1 or cin != cout:
+                conv(f"{p}.downsample.0", cout, cin, 1)
+                bn(f"{p}.downsample.1", cout)
+            cin = cout
+    sd["fc.weight"] = (0.01 * rng.standard_normal((1000, cin))).astype(
+        np.float32)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain versions, and the training
-and evaluation paths against the CPU, on the card.
+"""The port's CUDA kernels against their plain versions, and the training,
+evaluation, bf16 and int8 inference paths against the CPU, on the card.
 
 Run on a machine with an NVIDIA card and nvcc (``--noconftest``: that
 machine has no JAX, which tests/conftest.py imports):
@@ -345,3 +345,107 @@ def test_masked_max_prop_refuses_an_image_one_cluster_cannot_hold(card):
     m = torch.zeros(640, 640, device=card)
     with pytest.raises(ValueError):
         components.masked_max_prop(m, m, 1)
+
+
+# ---------------------------------------------------------------------------
+# bf16 and int8 inference (infer/quant.py, cli/infer.py:model_apply_fn)
+# ---------------------------------------------------------------------------
+
+def _blob_batch(rng, n, hw=64):
+    """Noisy disc images and masks, NCHW (tests/test_quant.py's data)."""
+    yy, xx = np.mgrid[:hw, :hw]
+    xs, ys = [], []
+    for _ in range(n):
+        cy, cx = rng.integers(16, hw - 16), rng.integers(16, hw - 16)
+        r = rng.integers(8, 16)
+        m = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+        xs.append((m + 0.15 * rng.standard_normal((hw, hw)))[None])
+        ys.append(m[None])
+    return (torch.from_numpy(np.stack(xs).astype(np.float32)),
+            torch.from_numpy(np.stack(ys).astype(np.float32)))
+
+
+def _trained_unet():
+    """The CPU tests' model: a ResNet18 U-Net with the default decoder
+    after 24 Adam steps on blob images, trained on the CPU."""
+    import torch.nn.functional as F
+    from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import (
+        build_unet)
+    from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
+        init_weights)
+    torch.manual_seed(4)
+    model = init_weights(build_unet("unet", "resnet18"),
+                         torch.Generator().manual_seed(4))
+    opt = torch.optim.Adam(model.parameters(), 3e-3)
+    rng = np.random.default_rng(4)
+    for _ in range(24):
+        x, y = _blob_batch(rng, 4)
+        loss = F.binary_cross_entropy_with_logits(model(x), y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return model.eval()
+
+
+def test_int8_conv_exact_on_the_card(card):
+    """K = 3*3*768 with sums past 2^24 (tests/test_torch_quant.py's data):
+    the card's int32 sums equal int64 numpy's."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
+        int8_conv)
+    rng = np.random.default_rng(0)
+    x = rng.integers(90, 128, (2, 6, 5, 768))
+    x[0, :, :, ::7] = rng.integers(-127, 128, x[0, :, :, ::7].shape)
+    x[1] = -x[1]
+    w = rng.integers(90, 128, (3, 3, 768, 16))
+    w[..., ::5] = rng.integers(-127, 128, w[..., ::5].shape)
+    got = int8_conv(torch.from_numpy(x.astype(np.int8)).to(card),
+                    torch.from_numpy(w.astype(np.int8)).to(card), 1, 1)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = np.zeros((2, 6, 5, 16), np.int64)
+    for dy in range(3):
+        for dx in range(3):
+            want += np.einsum("nhwc,co->nhwo", xp[:, dy:dy + 6, dx:dx + 5],
+                              w[dy, dx])
+    assert np.abs(want).max() > 2 ** 24
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+def test_int8_logits_on_the_card_match_the_cpu(card, cdt):
+    """One artifact on both devices: the integer convolutions are exact and
+    everything else is correctly rounded elementwise work, so the logits
+    are bit-equal."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
+        DTYPES, QuantConfig, QuantizedUNet2D)
+    model = _trained_unet()
+    rng = np.random.default_rng(2)
+    eng, tree = QuantizedUNet2D.from_model(
+        model, [_blob_batch(rng, 4)[0] for _ in range(2)],
+        QuantConfig("int8", DTYPES[cdt]))
+    x = _blob_batch(rng, 6)[0]
+    want = eng.apply(tree, x)
+    on_card = {p: {k: None if t is None else t.to(card)
+                   for k, t in leaf.items()} for p, leaf in tree.items()}
+    got = eng.apply(on_card, x.to(card)).cpu()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_bf16_logits_on_the_card_match_the_cpu(card):
+    """An ``amp`` model through ``model_apply_fn`` on both devices: within
+    tests/test_torch_infer.py's bound, 8 bf16 spacings at the largest
+    |logit|, and equal masks wherever |logit| exceeds it."""
+    import copy
+    from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
+        model_apply_fn)
+    model = _trained_unet()
+    model.compute_dtype = torch.bfloat16
+    x = _blob_batch(np.random.default_rng(5), 4)[0]
+    with torch.inference_mode():
+        want = model_apply_fn(model, lambda t: t)(x)
+        got = model_apply_fn(copy.deepcopy(model).to(card),
+                             lambda t: t)(x.to(card)).cpu()
+    bound = 8 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= bound
+    far = want.abs() > bound
+    assert torch.equal((got > 0)[far], (want > 0)[far])

@@ -12,7 +12,18 @@ Tolerances, each stated where it is checked:
   within 1e-5 of the threshold, ``summary.json`` metrics within 1e-5
   relative;
 - ``UNet2DTrainer.test``: Dice and IoU within 1e-5;
-- the report: ``report.html`` and ``report_metrics.json`` byte-equal.
+- the report: ``report.html`` and ``report_metrics.json`` byte-equal;
+- an ``amp`` checkpoint (bf16), against the JAX model in bf16 (plain
+  decoder, run op by op, so that every op rounds to bf16): logits within
+  B = 8 bf16 spacings at the largest |logit| (2^-5 of its binade), every
+  one a bf16 number and at least a quarter bit-equal to JAX's, their mean
+  distance to JAX's below 3/4 of the f32 path's, and masks equal wherever
+  the JAX |logit| exceeds B. The f32 path (the port before bf16 serving)
+  has no logit equal to JAX's;
+- ``--quant`` / ``--qtree``: the CLI's probabilities equal its engine's
+  in-process ones exactly; against the JAX CLI on one artifact within
+  1e-2 (the JAX CLI runs the engine jitted, where XLA fuses the dequant's
+  multiply and add), masks equal except within 1e-2 of the threshold.
 """
 import json
 from contextlib import nullcontext
@@ -25,6 +36,8 @@ import pytest
 import torch
 
 from test_torch_model import NARROW, jax_variables
+from test_torch_quant import (JAX_CLS, flax_variables, nchw, nhwc,
+                              one_thread, train_port_model)  # noqa: F401
 
 from mri_acl_imagesegmentation_adsp_tpu.cli import infer as jax_infer
 from mri_acl_imagesegmentation_adsp_tpu.infer import segment as jseg
@@ -32,7 +45,7 @@ from mri_acl_imagesegmentation_adsp_tpu.models import build_unet as jax_build
 from mri_acl_imagesegmentation_adsp_tpu.report import exporter as jexporter
 from mri_acl_imagesegmentation_adsp_tpu.train import checkpoint as jax_ckpt
 from mri_acl_imagesegmentation_adsp_tpu.train import trainer as jtrainer
-from mri_acl_imagesegmentation_adsp_tpu_torch.cli import infer
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli import infer, quantize
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
     pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
@@ -44,7 +57,11 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import (
     checkpoint, trainer)
+from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
+    QuantConfig, QuantizedUNet2D)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.device import f32_on_card
+from mri_acl_imagesegmentation_adsp_tpu_torch.utils.imagenet import (
+    make_input_norm)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.png import write_png
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs)
@@ -227,13 +244,19 @@ def test_infer_cli_matches_jax_cli(tmp_path, capsys):
 
 
 def test_infer_cli_refuses_what_is_not_ported(capsys):
-    for flag in (["--quant", "int8"], ["--qtree", "q.npz"],
-                 ["--data-parallel", "2"], ["--ckpt3d", "b.ckpt"],
-                 ["--spatial-parallel", "2"]):
+    """The 3-D flags are unrecognized, multi-device inference raises
+    naming its flag, and a run needs a checkpoint or an artifact."""
+    for flag, says in ((["--ckpt3d", "b.ckpt"], "unrecognized arguments"),
+                       (["--spatial-parallel", "2"], "unrecognized"),
+                       (["--data-parallel", "2"], "--data-parallel 2"),
+                       (["--quant", "int4"], "invalid choice")):
         with pytest.raises(SystemExit) as e:
             infer.main(["--ckpt", "x.ckpt", "--list", "l.txt", *flag])
         assert e.value.code == 2
-        assert "unrecognized arguments" in capsys.readouterr().err
+        assert says in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        infer.main(["--list", "l.txt"])
+    assert e.value.code == 2 and "--qtree" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         infer.main(["--help"])
     help_text = "".join(capsys.readouterr().out.split())
@@ -340,3 +363,152 @@ def test_report_exporter_matches_jax(tmp_path, capsys):
     assert "[report] wrote" in capsys.readouterr().out
     metrics = json.loads((run / "report_metrics.json").read_text())
     assert metrics["epochs"] == 3 and metrics["best"]["epoch"] == 3
+
+
+# ---------------------------------------------------------------------------
+# bf16 inference of an amp checkpoint; the quantized paths of the CLI
+# ---------------------------------------------------------------------------
+
+DEFAULT_DECODER = (256, 128, 64, 32, 16)
+
+
+def _bf16_spacing(m: float) -> float:
+    """The gap between bf16 numbers at magnitude ``m`` (8 significant
+    bits)."""
+    return float(2.0 ** (np.floor(np.log2(m)) - 7))
+
+
+def _amp_ckpt(tmp_path, arch):
+    """A briefly trained port model with the CLIs' default decoder, saved
+    as an ``amp`` checkpoint, and its Flax variables."""
+    model = train_port_model(arch, seed=4, decoder=DEFAULT_DECODER)
+    ck = str(tmp_path / f"{arch}.ckpt")
+    checkpoint.save_best(ck, model.state_dict(),
+                         dict(ARGS, model=arch, amp=True))
+    jm = JAX_CLS[arch](encoder="resnet18", classes=1, dtype=jnp.bfloat16,
+                       fused_decoder=False)
+    return ck, jm, flax_variables(jm, model.state_dict())
+
+
+@pytest.mark.parametrize("arch", ["unet", "unetpp"])
+def test_amp_checkpoint_infers_in_bf16_as_jax(tmp_path, arch):
+    """The repair: an ``amp`` checkpoint loads with a bf16 compute dtype
+    and ``model_apply_fn`` (the CLI's and the daemon's) runs it in bf16.
+    Held against the JAX module built with ``dtype=bfloat16`` on the same
+    weights; the f32 path the port used before is no bf16 computation and
+    fails the same bound."""
+    ck, jm, v = _amp_ckpt(tmp_path, arch)
+    model, margs = infer.load_model_from_ckpt(ck, "cpu")
+    assert margs["amp"] is True and model.compute_dtype == torch.bfloat16
+    x = np.random.default_rng(5).standard_normal((4, 64, 64, 1)).astype(
+        np.float32)
+    x[:, 16:48, 16:48] += 1.5
+    want = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
+    apply_fn = infer.model_apply_fn(model, make_input_norm(False))
+    with torch.inference_mode():
+        got = apply_fn(nchw(x))
+    assert got.dtype == torch.float32
+    got = nhwc(got)
+    bound = 8 * _bf16_spacing(np.abs(want).max())
+    dist = np.abs(got - want)
+    assert dist.max() <= bound, (dist.max(), bound)
+    assert np.array_equal(np.asarray(jnp.asarray(got).astype(jnp.bfloat16)
+                                     .astype(jnp.float32)), got)
+    assert (dist == 0).mean() >= 0.25, (dist == 0).mean()
+    far = np.abs(want) > bound
+    assert far.mean() > 0.5
+    np.testing.assert_array_equal((got > 0)[far], (want > 0)[far])
+    model.compute_dtype = torch.float32          # the f32 path
+    with torch.inference_mode():
+        f32 = nhwc(infer.model_apply_fn(model, make_input_norm(False))(
+            nchw(x)))
+    f32_dist = np.abs(f32 - want)
+    assert (f32_dist == 0).mean() < 0.25
+    assert dist.mean() < 0.75 * f32_dist.mean(), (dist.mean(),
+                                                  f32_dist.mean())
+
+
+def test_infer_cli_runs_amp_checkpoint_in_bf16(tmp_path):
+    """``cli.infer`` on an ``amp`` checkpoint: its probabilities are the
+    bf16 ``model_apply_fn``'s, not the f32 model's."""
+    lst = _write_packs(tmp_path / "packs", n=1, s=4)
+    ck, _, _ = _amp_ckpt(tmp_path, "unet")
+    assert infer.main(["--ckpt", ck, "--list", lst, "--save-probs",
+                       "--batch-size", "4", "--out-dir",
+                       str(tmp_path / "out"), "--device", "cpu"]) == 0
+    with np.load(tmp_path / "out" / "vol0" / "probs.npz") as z:
+        probs = z["probs"]
+    with np.load(tmp_path / "packs" / "vol0" / "volume.npz") as z:
+        vol = torch.from_numpy(z["img"])
+    model, _ = infer.load_model_from_ckpt(ck, "cpu")
+    want = segment.segment_volume_2d(
+        infer.model_apply_fn(model, make_input_norm(False)), vol,
+        batch_size=4)
+    np.testing.assert_array_equal(probs, want.numpy())
+    f32 = segment.segment_volume_2d(model, vol, batch_size=4)
+    assert not np.array_equal(probs, f32.numpy())
+
+
+def test_infer_cli_quant_and_qtree(tmp_path, capsys):
+    """``--quant int8`` calibrates on the first volume's first 16 slices;
+    ``--qtree`` serves a ``cli.quantize`` artifact without ``--ckpt``, and
+    an explicit ``--quant folded`` overrides its mode. Each run's
+    probabilities equal the engine's in-process ones; the JAX CLI on the
+    same artifact agrees within 1e-2."""
+    lst = _write_packs(tmp_path / "packs", n=2, s=6)
+    ck, jm, v = _amp_ckpt(tmp_path, "unet")
+    common = ["--list", lst, "--save-probs", "--batch-size", "4",
+              "--metrics"]
+
+    def probs(out):
+        with np.load(tmp_path / out / "vol1" / "probs.npz") as z:
+            return z["probs"]
+    with np.load(tmp_path / "packs" / "vol1" / "volume.npz") as z:
+        vol = torch.from_numpy(z["img"])
+    norm = make_input_norm(False)
+    model, _ = infer.load_model_from_ckpt(ck, "cpu")
+
+    assert infer.main(["--ckpt", ck, "--quant", "int8", "--out-dir",
+                       str(tmp_path / "int8"), "--device", "cpu",
+                       *common]) == 0
+    calib = quantize.calibration_batches(lst, 1, norm, 1, 16)
+    eng, tree = QuantizedUNet2D.from_model(
+        model, calib, QuantConfig("int8", torch.bfloat16))
+    want = segment.segment_volume_2d(lambda x: eng.apply(tree, norm(x)),
+                                     vol, batch_size=4)
+    np.testing.assert_array_equal(probs("int8"), want.numpy())
+
+    q = str(tmp_path / "q.npz")
+    assert quantize.main(["--ckpt", ck, "--list", lst, "--out", q,
+                          "--device", "cpu"]) == 0
+    eng, tree, meta = quantize.load_engine(q)
+    assert meta["compute_dtype"] == "bfloat16" and meta["mode"] == "int8"
+    assert infer.main(["--qtree", q, "--out-dir", str(tmp_path / "qtree"),
+                       "--device", "cpu", *common]) == 0
+    got = probs("qtree")
+    want = segment.segment_volume_2d(lambda x: eng.apply(tree, norm(x)),
+                                     vol, batch_size=4)
+    np.testing.assert_array_equal(got, want.numpy())
+
+    assert infer.main(["--qtree", q, "--quant", "folded", "--out-dir",
+                       str(tmp_path / "folded"), "--device", "cpu",
+                       *common]) == 0
+    folded = QuantizedUNet2D("resnet18", 1, DEFAULT_DECODER,
+                             QuantConfig("folded", torch.bfloat16))
+    want = segment.segment_volume_2d(lambda x: folded.apply(tree, norm(x)),
+                                     vol, batch_size=4)
+    np.testing.assert_array_equal(probs("folded"), want.numpy())
+    assert not np.array_equal(probs("folded"), got)
+
+    capsys.readouterr()
+    assert jax_infer.main(["--qtree", q, "--out-dir", str(tmp_path / "jax"),
+                           *common]) == 0
+    jp = probs("jax")
+    np.testing.assert_allclose(got, jp, rtol=0, atol=1e-2)
+    near = np.abs(jp[:, 0] - 0.5) < 1e-2
+    pred = np.load(tmp_path / "qtree" / "vol1" / "pred_mask.npy")
+    jpred = np.load(tmp_path / "jax" / "vol1" / "pred_mask.npy")
+    np.testing.assert_array_equal(pred[~near], jpred[~near])
+    summary = json.loads((tmp_path / "qtree" / "summary.json").read_text())
+    assert len(summary) == 2 and all(np.isfinite(e["dice"])
+                                     for e in summary)

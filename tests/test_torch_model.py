@@ -166,6 +166,6 @@ def test_build_unet_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError):        # a download, as in the JAX factory
         build_unet("unet", "resnet34", encoder_weights="imagenet")
     weights = tmp_path / "resnet34.pt"
-    torch.save({}, weights)
-    with pytest.raises(NotImplementedError):
+    torch.save({}, weights)     # a checkpoint imports, an empty one raises
+    with pytest.raises(ValueError, match="lacks torchvision"):
         build_unet("unet", "resnet34", encoder_weights=str(weights))

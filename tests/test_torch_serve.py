@@ -4,7 +4,14 @@ saved in each package's own checkpoint format (the port's through
 ``state_dict_from_flax``). A second daemon serves with ``--tta hflip`` and
 ``--microbatch-window-ms``: its answers to concurrent requests are held
 against sequential serving and the JAX runner, and its ``/metricsz``
-counts against the requests sent."""
+counts against the requests sent. An ``amp`` checkpoint serves in bf16
+(probabilities equal to the bf16 apply function's, not the f32 model's),
+and a ``--qtree`` daemon (int8, bf16 compute) answers ``/v1/segment`` and
+``/v1/segment_kspace`` with what its runner computes in process; on the
+same artifact the JAX daemon's runner agrees within 1e-6 without TTA, and
+with ``--tta hflip`` the JAX engine run op by op agrees within 1e-6 (the
+JAX runner jits the flip together with the int8 engine, and that program
+does not reproduce its own op-by-op logits, so it is not the yardstick)."""
 import io
 import json
 import sys
@@ -20,10 +27,16 @@ import numpy as np
 import pytest
 import torch
 
+from mri_acl_imagesegmentation_adsp_tpu.cli import quantize as jax_quantize
 from mri_acl_imagesegmentation_adsp_tpu.cli import serve as jax_serve
+from mri_acl_imagesegmentation_adsp_tpu.infer import segment as jax_seg
 from mri_acl_imagesegmentation_adsp_tpu.models import build_unet as jax_build
 from mri_acl_imagesegmentation_adsp_tpu.train import checkpoint as jax_ckpt
-from mri_acl_imagesegmentation_adsp_tpu_torch.cli import serve
+from test_torch_infer import _amp_ckpt, one_thread  # noqa: F401
+
+from mri_acl_imagesegmentation_adsp_tpu_torch.cli import infer, quantize, serve
+from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
+    segment_volume_2d, tta_wrap)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.convert import (
     state_dict_from_flax)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import checkpoint
@@ -172,14 +185,17 @@ def test_bad_requests(served):
     assert _status(url + "/v1/classify", x=pair) == 404
 
 
-@pytest.mark.parametrize("flag", [["--qtree", "q.npz"], ["--task", "recon"],
+@pytest.mark.parametrize("flag", [["--task", "classify"], ["--task", "recon"],
                                   ["--data-parallel", "2"]])
 def test_main_refuses_what_is_not_ported(flag, capsys):
+    """``--task`` (the recon and classify runners) is unrecognized;
+    multi-device serving raises naming its flag."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--ckpt", "unused.ckpt", *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "unrecognized arguments" in err and flag[0] in err
+    assert flag[0] in err
+    assert ("unrecognized arguments" in err) == (flag[0] == "--task")
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert flag[0] in "".join(capsys.readouterr().out.split())
@@ -356,3 +372,90 @@ def test_main_accepts_tta_and_microbatching(capsys):
         serve.main(["--help"])
     text = "".join(capsys.readouterr().out.split())
     assert "--tta{none,hflip}" in text and "--microbatch-window-ms" in text
+
+
+def test_amp_checkpoint_serves_in_bf16(tmp_path):
+    ck, _, _ = _amp_ckpt(tmp_path, "unet")
+    runner = serve._build_runner(SimpleNamespace(
+        ckpt=ck, batch_size=4, device="cpu"))
+    assert runner.compute_dtype == torch.bfloat16 and runner.source == "ckpt"
+    vol = np.random.default_rng(3).standard_normal((5, 64, 64)).astype(
+        np.float32)
+    got = runner.segment(vol, 0.5, True)["probs"]
+    model, _ = infer.load_model_from_ckpt(ck, "cpu")
+    want = segment_volume_2d(
+        infer.model_apply_fn(model, lambda x: x), torch.from_numpy(vol),
+        batch_size=4)
+    np.testing.assert_array_equal(got, want.numpy())
+    f32 = segment_volume_2d(model, torch.from_numpy(vol), batch_size=4)
+    assert not np.array_equal(got, f32.numpy())
+
+
+def test_qtree_daemon_matches_in_process_and_jax(tmp_path):
+    """``--qtree`` with ``--tta hflip`` and ``--microbatch-window-ms``: one
+    /v1/segment_kspace and two concurrent /v1/segment requests, each
+    answer the in-process runner's; /healthz says ``qtree``; /metricsz
+    counts the three."""
+    ck, _, _ = _amp_ckpt(tmp_path, "unet")
+    rng = np.random.default_rng(9)
+    d = tmp_path / "vol0"
+    d.mkdir()
+    np.savez(d / "volume.npz", img=rng.standard_normal(
+        (6, 1, 32, 32)).astype(np.float32), msk=np.zeros((6, 32, 32),
+                                                        np.uint8))
+    (tmp_path / "l.txt").write_text(str(d / "volume.npz"))
+    q = str(tmp_path / "q.npz")
+    assert quantize.main(["--ckpt", ck, "--list", str(tmp_path / "l.txt"),
+                          "--out", q, "--device", "cpu"]) == 0
+    server = serve.create_server(SimpleNamespace(
+        ckpt=None, qtree=q, host="127.0.0.1", port=0, batch_size=4,
+        pre_out_size="32,32", warmup_shape="2,32,32", device="cpu",
+        tta="hflip", microbatch_window_ms=50))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    runner = server.RequestHandlerClass.runner
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["source"] == "qtree" and health["k"] == 1
+        assert runner.compute_dtype == torch.bfloat16
+        pair = synthetic_kspace_pairs(seed=7, s=4, h=64, w=48)
+        got = _post(url + "/v1/segment_kspace?probs=1", kspace=pair)
+        want = runner.segment_kspace(pair, 0.5, True)
+        for key in ("mask", "body_mask", "probs"):
+            np.testing.assert_array_equal(got[key], want[key])
+        vols = [rng.standard_normal((s, 32, 32)).astype(np.float32)
+                for s in (3, 5)]
+        results = {}
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, _post(url + "/v1/segment?probs=1", img=vols[i])))
+            for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        eng, tree, _ = quantize.load_engine(q)
+        for i, vol in enumerate(vols):
+            want = segment_volume_2d(
+                lambda x: eng.apply(tree, x), torch.from_numpy(vol),
+                batch_size=4, tta="hflip")
+            np.testing.assert_array_equal(results[i]["probs"], want.numpy())
+        m = _metricsz(url)
+        assert m["serve_requests_total"] == 3 + 1   # + the in-process one
+        jax_runner = jax_serve._build_runner(SimpleNamespace(
+            qtree=q, ckpt=None, batch_size=4, pre_out_size="32,32"))
+        plain = segment_volume_2d(lambda x: eng.apply(tree, x),
+                                  torch.from_numpy(vols[1]), batch_size=4)
+        np.testing.assert_allclose(
+            plain.numpy(), jax_runner.segment(vols[1], 0.5, True)["probs"],
+            rtol=0, atol=1e-6)
+        jeng, jtree, _ = jax_quantize.load_engine(q)
+        jlogits = np.asarray(jax_seg.tta_wrap(
+            lambda x: jeng.apply(jtree, x), 1, "hflip")(
+                jnp.asarray(vols[1][..., None])))
+        np.testing.assert_allclose(
+            results[1]["probs"][:, 0], 1 / (1 + np.exp(-jlogits[..., 0])),
+            rtol=0, atol=1e-6)
+    finally:
+        _stop(server, thread)

@@ -457,9 +457,10 @@ def test_committed_args_json_files_replay():
 @pytest.mark.parametrize("field,value", [
     ("data_parallel", 2), ("multihost", True), ("store_sharded", True),
     ("remat", True), ("ckpt_async", True), ("ckpt_backend", "orbax"),
-    ("resume", True), ("save_resume_every", 1), ("save_resume_steps", 5),
-    ("resume_keep", 2), ("preempt_save", True), ("profile_epochs", 1),
-    ("encoder_weights", "/tmp/resnet.pt")])
+    ("save_resume_every", -1), ("save_resume_steps", -5),
+    ("resume_keep", -2), ("profile_epochs", -1),
+    ("encoder_weights", "/nonexistent/resnet.pt"),
+    ("encoder_weights", "imagenet"), ("data_parallel", 4)])
 def test_refused_extensions_raise_naming_the_flag(tmp_path, field, value):
     args = trainer.UNet2DArgs(out_dir=str(tmp_path / "run"), **{field: value})
     with pytest.raises(ValueError, match="--" + field.replace("_", "-")):
@@ -467,11 +468,16 @@ def test_refused_extensions_raise_naming_the_flag(tmp_path, field, value):
     assert not (tmp_path / "run").exists()
 
 
-def test_loggers():
+def test_loggers(tmp_path):
     assert isinstance(make_logger("noop", "/nonexistent"), NoOpLogger)
-    for kind in ("tb", "csv+tb"):
-        with pytest.raises(NotImplementedError):
-            make_logger(kind, "/nonexistent")
+    for kind in ("tb", "csv+tb"):         # TensorBoard event files
+        lg = make_logger(kind, str(tmp_path / kind))
+        lg.log_epoch(epoch=1, time_s=1.0, train_loss=0.5, val_loss=0.4,
+                     val_dice=0.6, val_iou=0.5, lr=1e-3)
+        lg.close()
+        assert list((tmp_path / kind / "tb").glob("events.out.tfevents.*"))
+        assert ((tmp_path / kind / "history_epoch.csv").is_file()
+                == (kind == "csv+tb"))
     with pytest.raises(ValueError):
         make_logger("wandb", "/nonexistent")
 

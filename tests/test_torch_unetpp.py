@@ -153,8 +153,8 @@ def test_validate_encoder_weights_matches_jax(tmp_path, value):
         assert str(got.value) == str(e)
         return
     assert validate_encoder_weights(value) == want
-    if want is not None:       # importing a torch encoder is not ported
-        with pytest.raises(NotImplementedError):
+    if want is not None:       # an empty file holds no ResNet to import
+        with pytest.raises(ValueError, match="lacks torchvision"):
             build_unet("unetpp", encoder_weights=value)
 
 
