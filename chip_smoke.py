@@ -33,7 +33,8 @@ Phases, each printing one JSON line with its seconds:
      at full width (batch 8, aug light, bf16 autocast and store, as the
      reference run), serve the best checkpoint back on the val volume;
      one engine step card vs CPU in f32 (loss, every gradient, the BN
-     running stats); train slices/s at batch 8 f32, batch 8 bf16 and
+     running stats); two steps with ``--remat`` on and off bit-equal, the
+     BN running stats moved once a step; train slices/s at batch 8 f32, batch 8 bf16 and
      batch 128 bf16 with peak memory;
   7  evaluate and serve the rest: the batch inference CLI on phase 6's val
      list and best checkpoint with --metrics, plain and with --tta hflip;
@@ -79,7 +80,20 @@ Phases, each printing one JSON line with its seconds:
      straight run (cuDNN deterministic); a launcher run with
      --encoder-weights (a seeded torchvision ResNet34 file) whose encoder
      holds the file's weights before the first step, with
-     --profile-epochs 1 leaving a trace that names CUDA kernels.
+     --profile-epochs 1 leaving a trace that names CUDA kernels;
+ 10  the corpus route, reduced in depth: ``tools/corpus_run.py`` at the b8
+     bar on 8 corpus volumes of 112x368x320 made in memory and packed on
+     the card (each mask kernel launched once a pack), the launcher's split
+     and one epoch at full width, ``cli.infer --metrics`` on the val list;
+     val Dice, epoch seconds and slices/s, no quality gate;
+ 11  the 3-D patch path on phase 10's packs: ``train/trainer3d.py``'s CLI
+     at the reference width (channels 32-64-128-256-320), ROI 160x160x64,
+     batch 2, ``--amp``, with the host sampler and with --device-sampling;
+     ``cli.infer --ckpt3d --metrics`` on a whole val volume; ms a step and
+     peak memory with remat on and off; one f32 step of a narrow model card
+     vs CPU (TF32 off); a narrow run preempted and resumed bit-equal to a
+     straight one (cuDNN deterministic). The 3-D path launches no mask
+     kernel.
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -125,11 +139,14 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
     SURFACE_CHUNK, evaluate_volume, segment_volume_2d, segment_volumes_2d,
     slice_metrics, threshold_probs)
-from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import (
+    build_unet, build_unet3d)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.torch_import import (
     convert_resnet_encoder, load_torch_checkpoint)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet3d import (
+    init_weights3d)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     _build, components, morphology)
@@ -138,16 +155,18 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.ops.maskops import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.restoration import (
     n4_bias_correction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
-from mri_acl_imagesegmentation_adsp_tpu_torch.tools import probe_label_prop
+from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
+    corpus_run, probe_label_prop)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
     augment_batch)
+from mri_acl_imagesegmentation_adsp_tpu_torch.train import trainer3d
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
     load_best, save_best)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.engine import Engine
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
-    LossManager)
+    LossManager, dice_ce_loss_3d_binary)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
     make_optimizer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
@@ -206,6 +225,19 @@ BF16_SPACINGS = 8          # bf16 card vs CPU: bf16 spacings at max |logit|
 QUANT_BATCH = (16, 1, 320, 320)
 QUANT_TIMED_RUNS = 10
 RESUME_SAVE_STEPS = 2      # steps between the resumed run's snapshots
+CORPUS_VOLUMES = 8         # phase 10: of the corpus's 125, at 112x368x320
+CORPUS_EPOCHS = 1          # of the b8 bar's 2
+CHANNELS_3D = (32, 64, 128, 256, 320)   # the reference 3-D U-Net
+ROI_3D = (160, 160, 64)    # (Y, X, D), the reference patch
+BATCH_3D = 2
+TIMED_STEPS_3D = 5         # after 2 warm-up steps, remat on and off
+NARROW_3D = (8, 16, 32)    # the f32 step card vs CPU and the resume check
+NARROW_ROI_3D = (64, 64, 16)
+STEP3D_LOSS_RTOL = 1e-5    # f32 3-D step card vs CPU, TF32 off: the loss
+STEP3D_GRAD_RTOL = 1e-3    # each gradient, times its max |g|, plus ...
+STEP3D_GRAD_FLOOR = 1e-5   # ... this times the net's max |g| (the conv
+                           # biases ahead of a norm have zero gradients in
+                           # exact arithmetic)
 
 
 def emit(obj: dict) -> None:
@@ -855,6 +887,57 @@ def step_parity(dev: torch.device, src: SliceStore) -> dict:
     return out
 
 
+def remat_parity(dev: torch.device, src: SliceStore) -> dict:
+    """``--remat`` on the card: two engine steps (aug none, f32) of the
+    full-width U-Net at batch 8 from the same weights and batch, its blocks
+    recomputed in the backward pass and not. Here the backward pass runs
+    on autograd's device thread, where the recompute must still leave the
+    BN running statistics alone: losses, gradients and running statistics
+    bit-equal (the caller's flags: TF32 off, cuDNN deterministic), and
+    every ``num_batches_tracked`` at 2."""
+    x = torch.from_numpy(src.images[:8, None].copy()).to(dev)
+    y = torch.from_numpy(src.masks[:8].astype(np.uint8)).to(dev)
+    state = _train_model(7).state_dict()
+    runs = {}
+    for on in (False, True):
+        model = build_unet("unet", "resnet34", in_ch=1, classes=1, remat=on)
+        model.load_state_dict(state)
+        eng = _engine(model.to(dev), "none", amp=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads = [], []
+        for _ in range(2):
+            loss, g = eng.grads_one(x, y, None)
+            eng.optimizer.step(g)
+            losses.append(loss.detach())
+            grads.extend(t.detach().clone() for t in g)
+        runs[on] = {"losses": losses, "grads": grads,
+                    "buffers": {n: b.clone() for n, b in
+                                model.named_buffers()},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model, eng
+    plain, rem = runs[False], runs[True]
+    tracked = {int(v) for n, v in rem["buffers"].items()
+               if n.endswith("num_batches_tracked")}
+    out = {"batch": [8, 1, 320, 320],
+           "losses": [float(v) for v in rem["losses"]],
+           "loss_max_abs_diff": max(float((a - b).abs()) for a, b in zip(
+               plain["losses"], rem["losses"])),
+           "grad_max_abs_diff": max(float((a - b).abs().max()) for a, b in
+                                    zip(plain["grads"], rem["grads"])),
+           "buffer_max_abs_diff": max(
+               float((plain["buffers"][n].double() - b.double()).abs().max())
+               for n, b in rem["buffers"].items()),
+           "num_batches_tracked": sorted(tracked),
+           "peak_gib": {"remat_off": plain["peak_gib"],
+                        "remat_on": rem["peak_gib"]}}
+    torch.cuda.empty_cache()
+    if (tracked != {2} or out["loss_max_abs_diff"] or out["grad_max_abs_diff"]
+            or out["buffer_max_abs_diff"]):
+        raise AssertionError(f"remat on vs off on the card: {out}")
+    return out
+
+
 def train_throughput(dev: torch.device, src: SliceStore, batch: int,
                      amp: bool, model: str = "unet") -> dict:
     """Slices/s of the reference step (aug light) over TIMED_STEPS steps
@@ -973,12 +1056,14 @@ def phase_train(dev: torch.device, defaults: dict, tmp: str) -> dict:
     parity_flags = dict(timed_flags, cudnn_deterministic=True)
     _set_precision_flags(parity_flags)
     parity = step_parity(dev, src)
+    remat = remat_parity(dev, src)
     _set_precision_flags(defaults)
     emit({"phase": "train", "seconds": time.perf_counter() - t0,
           "model": "unet/resnet34", "input": [1, 320, 320],
           "pack": packed, "launcher": trained,
           "train_slices": int(len(src)), "launcher_flags": defaults,
           "step_parity": parity, "step_parity_flags": parity_flags,
+          "remat_parity": remat,
           "slices_per_s": {k: v["slices_per_s"] for k, v in speed.items()},
           "pack_s_per_volume": sum(packed["pack_s"]) / len(packed["pack_s"])})
     return packed["launches"]
@@ -2043,6 +2128,251 @@ def phase_rest_2d(dev: torch.device, defaults: dict, tmp: str) -> dict:
             "serve_qtree": out["int8_served"]["kspace"]["launches"]}
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the corpus route, reduced
+# --------------------------------------------------------------------------
+
+def phase_corpus(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """``tools/corpus_run.py`` at the b8 bar on CORPUS_VOLUMES volumes of
+    the corpus at full size and width, CORPUS_EPOCHS epoch, without the
+    quantized runs: the packs made in memory on the card, one launch of
+    each mask kernel a pack, counted from 0 just before; the launcher's
+    split and train; ``cli.infer --metrics`` on the val list. Returns the
+    launches and the run's lists."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    reset_mask_launches()
+    out = corpus_run.run("b8", os.path.join(tmp, "corpus"),
+                         volumes=CORPUS_VOLUMES, device=str(dev),
+                         epochs=CORPUS_EPOCHS, quantized=False)
+    launches = mask_launches()
+    if set(launches.values()) != {CORPUS_VOLUMES}:
+        raise AssertionError(f"{CORPUS_VOLUMES} corpus packs launched the "
+                             f"mask kernels {launches} times")
+    missing = [f for f in RUN_FILES if not os.path.isfile(
+        os.path.join(out["run_dir"], f))]
+    numbers = (out["val_dice_by_epoch"] + out["val_loss_by_epoch"]
+               + out["epoch_s"] + out["train_slices_per_sec"]
+               + [out["infer_metrics"][k] for k in ("dice", "iou")])
+    if (missing or len(out["val_dice_by_epoch"]) != CORPUS_EPOCHS
+            or not all(np.isfinite(numbers))):
+        raise AssertionError(f"the corpus run: missing {missing}, {out}")
+    emit({"phase": "corpus", "seconds": time.perf_counter() - t0,
+          "launches": launches, **{k: v for k, v in out.items()
+                                   if k not in ("flags", "card")}})
+    return {"launches": launches, "lists": out["lists"]}
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the 3-D patch path at full width
+# --------------------------------------------------------------------------
+
+def _flags_3d(lists: str, out_dir: str, dev: torch.device, *extra) -> list:
+    return ["--train-list", os.path.join(lists, "train.txt"),
+            "--val-list", os.path.join(lists, "val.txt"),
+            "--out-dir", out_dir, "--epochs", "1",
+            "--batch-size", str(BATCH_3D), "--samples-per-vol-train", "1",
+            "--samples-per-vol-val", "1", "--device", str(dev), *extra]
+
+
+def train_3d_cli(lists: str, tmp: str, dev: torch.device,
+                 sampling: str) -> dict:
+    """``train/trainer3d.py``'s CLI at the reference width, ROI and batch
+    with ``--amp``: one patch a train volume, one epoch."""
+    out_dir = os.path.join(tmp, f"run3d_{sampling}")
+    extra = ["--roi", *map(str, ROI_3D), "--channels",
+             *map(str, CHANNELS_3D), "--amp"]
+    if sampling == "device":
+        extra.append("--device-sampling")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    if trainer3d.main(_flags_3d(lists, out_dir, dev, *extra)) != 0:
+        raise AssertionError(f"trainer3d ({sampling} sampling) failed")
+    secs = time.perf_counter() - t1
+    with open(os.path.join(out_dir, "train_log.csv"), encoding="utf-8") as f:
+        rows = f.read().split()
+    vals = [float(v) for v in rows[1].split(",")[1:]]
+    if (rows[0] != "epoch,train_loss,val_loss,lr" or len(rows) != 2
+            or not all(np.isfinite(vals))
+            or not os.path.isfile(os.path.join(out_dir, "best3d.ckpt"))):
+        raise AssertionError(f"trainer3d ({sampling}): {rows}")
+    return {"seconds": secs, "train_log": rows[1],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "ckpt": os.path.join(out_dir, "best3d.ckpt")}
+
+
+def time_3d_step(dev: torch.device, remat: bool) -> dict:
+    """ms a train step (bf16 forward + DiceCE + backward + AdamW) at the
+    reference width, ROI and batch, and the peak memory, by CUDA events
+    over TIMED_STEPS_3D steps after two warm-up steps."""
+    model = build_unet3d(1, 1, CHANNELS_3D, dtype=torch.bfloat16,
+                         remat=remat)
+    init_weights3d(model, torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    params = list(model.parameters())
+    opt = make_optimizer(params, 1e-3, 1e-4, 0.0)
+    yy, xx, dd = ROI_3D
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((BATCH_3D, 1, dd, yy, xx), generator=gen, device=dev)
+    y = (torch.rand((BATCH_3D, 1, dd, yy, xx), generator=gen, device=dev)
+         > 0.7).float()
+
+    def step():
+        loss = dice_ce_loss_3d_binary(model(x), y)
+        opt.step(list(torch.autograd.grad(loss, params)))
+        return loss
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(TIMED_STEPS_3D):
+        loss = step()
+    end.record()
+    torch.cuda.synchronize()
+    out = {"remat": remat, "ms_per_step": start.elapsed_time(end)
+           / TIMED_STEPS_3D, "peak_gib": torch.cuda.max_memory_allocated()
+           / 2 ** 30, "loss": float(loss.detach())}
+    del model, opt, x, y
+    torch.cuda.empty_cache()
+    if not np.isfinite(out["loss"]):
+        raise AssertionError(f"3-D step: {out}")
+    return out
+
+
+def step_3d_card_vs_cpu(dev: torch.device) -> dict:
+    """One f32 DiceCE step of a narrow 3-D U-Net on the card (TF32 off) and
+    on the CPU from the same weights and batch: the loss and every
+    gradient."""
+    model = init_weights3d(build_unet3d(1, 1, NARROW_3D),
+                           torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    yy, xx, dd = NARROW_ROI_3D
+    x = torch.from_numpy(rng.standard_normal(
+        (BATCH_3D, 1, dd, yy, xx)).astype(np.float32))
+    y = torch.from_numpy((rng.random((BATCH_3D, 1, dd, yy, xx)) > 0.6
+                          ).astype(np.float32))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        m = copy.deepcopy(model).to(d)
+        with f32_on_card(d):
+            loss = dice_ce_loss_3d_binary(m(x.to(d)), y.to(d))
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+        out[name] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out["card"]
+    big = max(float(g.abs().max()) for g in gc)
+    worst = max(float((a - b).abs().max()) / (
+        STEP3D_GRAD_RTOL * float(b.abs().max()) + STEP3D_GRAD_FLOOR * big)
+                for a, b in zip(gg, gc))
+    res = {"channels": list(NARROW_3D), "roi": list(NARROW_ROI_3D),
+           "loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_err_over_bound_max": worst,
+           "grad_rule": f"{STEP3D_GRAD_RTOL} x max|g| + "
+                        f"{STEP3D_GRAD_FLOOR} x the net's max|g|"}
+    if res["loss_rel_err"] > STEP3D_LOSS_RTOL or worst > 1.0:
+        raise AssertionError(f"3-D step card vs CPU: {res}")
+    return res
+
+
+def infer_3d_whole_volume(lists: str, tmp: str, dev: torch.device,
+                          ckpt: str) -> dict:
+    """``cli.infer --ckpt3d --metrics`` on the first val volume, whole."""
+    with open(os.path.join(lists, "val.txt"), encoding="utf-8") as f:
+        first = f.read().split()[0]
+    one = os.path.join(tmp, "val3d_one.txt")
+    with open(one, "w", encoding="utf-8") as f:
+        f.write(first)
+    out_dir = os.path.join(tmp, "preds3d")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    if infer.main(["--ckpt3d", ckpt, "--list", one, "--out-dir", out_dir,
+                   "--metrics", "--device", str(dev)]) != 0:
+        raise AssertionError("cli.infer --ckpt3d failed")
+    secs = time.perf_counter() - t1
+    with np.load(first) as z:
+        shape = z["msk"].shape
+    pred = np.load(os.path.join(out_dir, os.path.basename(
+        os.path.dirname(first)), "pred_mask.npy"))
+    with open(os.path.join(out_dir, "summary.json"), encoding="utf-8") as f:
+        summary = json.load(f)[0]
+    if pred.shape != shape or not np.isfinite(summary["dice"]):
+        raise AssertionError(f"--ckpt3d: {pred.shape} vs {shape}, {summary}")
+    padded = [-(-n // 16) * 16 for n in shape]
+    return {"seconds": secs, "volume": list(shape), "padded_to": padded,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "summary": {k: summary[k] for k in ("dice", "iou", "hd95",
+                                                "assd")}}
+
+
+def resume_3d(lists: str, tmp: str, dev: torch.device) -> dict:
+    """A narrow 3-D run preempted after epoch 1 of 2 and resumed, against
+    a straight run: train_log.csv and every weight bit-equal, cuDNN
+    deterministic, its autotuner off."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    extra = ["--roi", *map(str, NARROW_ROI_3D), "--channels",
+             *map(str, NARROW_3D), "--epochs", "2", "--amp"]
+    straight, cut = (os.path.join(tmp, n) for n in ("r3d_ref", "r3d_cut"))
+    try:
+        if trainer3d.main(_flags_3d(lists, straight, dev, *extra)) != 0:
+            raise AssertionError("the straight 3-D run failed")
+        t = trainer3d.UNet3DTrainer(trainer3d.parse_args(
+            _flags_3d(lists, cut, dev, *extra)), dev)
+        real = t.train_one_epoch
+
+        def preempting():
+            out = real()
+            t.request_preempt()
+            return out
+        t.train_one_epoch = preempting
+        t.fit()
+        snaps = sorted(os.listdir(os.path.join(cut, "checkpoints")))
+        if trainer3d.main(_flags_3d(lists, cut, dev, *extra,
+                                    "--resume")) != 0:
+            raise AssertionError("the resumed 3-D run failed")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    logs = [open(os.path.join(d, "train_log.csv"), encoding="utf-8").read()
+            for d in (straight, cut)]
+    best = [load_best(os.path.join(d, "best3d.ckpt")) for d in (straight,
+                                                                 cut)]
+    differ = [k for k in best[0] if not torch.equal(best[0][k], best[1][k])]
+    out = {"snapshots_at_cut": snaps, "train_log": logs[1].split(),
+           "log_equal": logs[0] == logs[1], "tensors": len(best[0]),
+           "tensors_differ": differ}
+    if snaps != ["resume_000001"] or not out["log_equal"] or differ:
+        raise AssertionError(f"resumed 3-D run differs: {out}")
+    return out
+
+
+def phase_3d(dev: torch.device, defaults: dict, tmp: str,
+             lists: str) -> dict:
+    """Phase 11 on phase 10's packs and lists. Returns the mask kernels'
+    launches on the 3-D path (none)."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    reset_mask_launches()
+    out = {"train_host": train_3d_cli(lists, tmp, dev, "host"),
+           "train_device": train_3d_cli(lists, tmp, dev, "device")}
+    out["infer_ckpt3d"] = infer_3d_whole_volume(
+        lists, tmp, dev, out["train_host"]["ckpt"])
+    launches = mask_launches()
+    out["step"] = [time_3d_step(dev, remat) for remat in (True, False)]
+    out["f32_step_card_vs_cpu"] = step_3d_card_vs_cpu(dev)
+    out["resume"] = resume_3d(lists, tmp, dev)
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 11 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
+    emit({"phase": "patch3d", "seconds": time.perf_counter() - t0,
+          "launches": launches, "channels": list(CHANNELS_3D),
+          "roi": list(ROI_3D), "batch": BATCH_3D, **out})
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2072,6 +2402,9 @@ def main() -> int:
         cc_row, prop_row, by_path["multicoil_serve"] = phase_preprocess_rest(
             model, dev, defaults, chain_s)
         by_path.update(phase_rest_2d(dev, defaults, tmp))
+        corpus = phase_corpus(dev, defaults, tmp)
+        by_path["corpus"] = corpus["launches"]
+        by_path["patch3d"] = phase_3d(dev, defaults, tmp, corpus["lists"])
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

@@ -19,6 +19,8 @@ Usage:
       --ckpt runs/unet2d/best.ckpt --list lists/val.txt --out-dir preds \\
       [--metrics] [--tta hflip] [--batch-size 16] [--device cuda] \\
       [--quant none|int8|folded] [--qtree quant_int8.npz]
+  python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer \\
+      --ckpt3d runs/unet3d/best3d.ckpt --list lists/val.txt --metrics
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from ..data.hbm_loader import read_list
 from ..infer.quant import QuantConfig, QuantizedUNet2D
 from ..infer.segment import evaluate_volume, segment_volume_2d, threshold_probs
-from ..models.factory import build_unet
+from ..models.factory import build_unet, build_unet3d
 from ..train import checkpoint as ckpt_lib
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
@@ -76,12 +78,10 @@ def model_apply_fn(model: torch.nn.Module, norm: Callable) -> Callable:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        "Whole-volume segmentation inference (PyTorch)", allow_abbrev=False,
-        epilog="Not ported, so refused as unrecognized arguments: the JAX "
-               "CLI's --ckpt3d and --spatial-parallel (the 3-D path).")
+        "Whole-volume segmentation inference (PyTorch)", allow_abbrev=False)
     p.add_argument("--ckpt", help="best checkpoint (train/checkpoint.py "
                                   "format) with its .args.json beside it; "
-                                  "optional with --qtree")
+                                  "optional with --qtree or --ckpt3d")
     p.add_argument("--list", dest="list_txt", required=True,
                    help="txt file of volume.npz paths")
     p.add_argument("--out-dir", default="preds")
@@ -105,14 +105,27 @@ def main(argv=None) -> int:
     p.add_argument("--data-parallel", type=int, default=1,
                    help="devices to shard each batch over; only 1 is "
                         "ported")
+    p.add_argument("--ckpt3d",
+                   help="3-D checkpoint (trainer3d best3d.ckpt): whole-"
+                        "volume 3-D inference instead of 2-D slices")
+    p.add_argument("--spatial-parallel", type=int, default=1,
+                   help="with --ckpt3d: devices to depth-shard the volume "
+                        "over; only 1 is ported")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     args = p.parse_args(argv)
     if args.data_parallel != 1:
         p.error(f"--data-parallel {args.data_parallel}: multi-device "
-                "inference is not ported (ROADMAP.md Queue 1 item 14)")
+                "inference is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.spatial_parallel != 1:
+        p.error(f"--spatial-parallel {args.spatial_parallel}: depth-sharded "
+                "3-D inference is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.ckpt3d:
+        dev = resolve_device(args.device)
+        with f32_on_card(dev):
+            return _run_3d(args, dev)
     if not args.ckpt and not args.qtree:
-        p.error("one of --ckpt / --qtree is required")
+        p.error("one of --ckpt / --qtree / --ckpt3d is required")
 
     dev = resolve_device(args.device)
     if args.qtree:
@@ -151,6 +164,71 @@ def main(argv=None) -> int:
 
     with f32_on_card(dev):
         return _run(args, apply_fn, k, classes, dev)
+
+
+def load_model3d_from_ckpt(ckpt_path: str,
+                           device: str | torch.device = "cuda"):
+    """The 3-D model of ``<ckpt>.args.json`` (bf16 compute for an ``amp``
+    checkpoint) with its weights, on ``device`` in eval mode; returns
+    ``(model, args)``."""
+    with open(ckpt_path + ".args.json", "r", encoding="utf-8") as f:
+        margs = json.load(f)
+    model = build_unet3d(
+        channels=tuple(margs.get("channels", (32, 64, 128, 256, 320))),
+        classes=int(margs.get("classes", 1)),
+        dtype=torch.bfloat16 if margs.get("amp") else torch.float32)
+    model.load_state_dict(ckpt_lib.load_best(ckpt_path))
+    return model.to(resolve_device(device)).eval(), margs
+
+
+def _run_3d(args, dev: torch.device) -> int:
+    model, margs = load_model3d_from_ckpt(args.ckpt3d, dev)
+    classes = int(margs.get("classes", 1))
+    out_root = Path(args.out_dir)
+    out_root.mkdir(parents=True, exist_ok=True)
+    summary = []
+    for path in read_list(args.list_txt):
+        with np.load(path) as z:
+            vol = z["img"].astype(np.float32)      # (S,1,H,W)
+            gt = z["msk"].astype(np.uint8)
+        # the per-volume z-score of the 3-D sampler (train/trainer3d.py)
+        mu, sd = float(vol.mean()), float(vol.std() + 1e-6)
+        x = ((vol - mu) / sd)[None, :, 0][:, None]   # (1,1,S,H,W)
+        # zero-pad (S, H, W) to the model's 2^4 stride; crop back below
+        s0, h0, w0 = x.shape[2:]
+        pads = [(0, -d % 16) for d in (s0, h0, w0)]
+        if any(p[1] for p in pads):
+            x = np.pad(x, [(0, 0), (0, 0), *pads])
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(x).to(dev))[
+                0, :, :s0, :h0, :w0]
+            if classes == 1:
+                probs = torch.sigmoid(logits[0])            # (S,H,W)
+                pred = (probs > args.threshold).to(torch.uint8)
+            else:
+                probs = torch.softmax(logits, dim=0).permute(1, 2, 3, 0)
+                pred = probs.argmax(dim=-1).to(torch.uint8)
+
+        vol_dir = out_root / Path(path).parent.name
+        vol_dir.mkdir(parents=True, exist_ok=True)
+        np.save(vol_dir / "pred_mask.npy", pred.cpu().numpy())
+        if args.save_probs:
+            np.savez_compressed(vol_dir / "probs.npz",
+                                probs=probs.cpu().numpy())
+        entry = {"volume": path, "num_slices": int(vol.shape[0]),
+                 "pred_path": str(vol_dir / "pred_mask.npy")}
+        if args.metrics and classes == 1:
+            entry.update(evaluate_volume(pred, torch.from_numpy(gt).to(dev)))
+        summary.append(entry)
+        msg = (f"[infer3d] {Path(path).parent.name}: whole volume "
+               f"{vol.shape[0]} slices")
+        if "dice" in entry:
+            msg += f" dice {entry['dice']:.4f}"
+        print(msg)
+
+    with (out_root / "summary.json").open("w", encoding="utf-8") as f:
+        json.dump(summary, f, indent=2)
+    return 0
 
 
 def _run(args, apply_fn, k: int, classes: int, dev: torch.device) -> int:

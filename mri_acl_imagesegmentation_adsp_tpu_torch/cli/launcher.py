@@ -13,10 +13,10 @@ The preprocess stage reads fastMRI ``.h5`` files, whose adapters are not
 ported yet: it raises. Packs made by ``data/packer.py:pack_kspace_volume``
 train with ``--skip-preprocess``. The TPU extension flags are accepted and
 passed on: ``--resume``, ``--save-resume-every``, ``--save-resume-steps``,
-``--resume-keep``, ``--preempt-save``, ``--profile-epochs`` and
-``--encoder-weights <checkpoint>`` run; the trainer refuses the others
-(``--ckpt-backend orbax``, ``--ckpt-async``, ``--remat``,
-``--store-sharded``, ``--data-parallel`` above 1).
+``--resume-keep``, ``--preempt-save``, ``--profile-epochs``, ``--remat``
+and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
+(``--ckpt-backend orbax``, ``--ckpt-async``, ``--store-sharded``,
+``--data-parallel`` above 1).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.launcher \\
       --skip-preprocess --artifact-dir artifacts --out-dir runs/port \\

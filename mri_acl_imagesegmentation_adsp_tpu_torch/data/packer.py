@@ -11,10 +11,12 @@ files and QC statistics:
   preview/slice_XXX.png  the first ``preview_max`` preview slices
   stats.json             in-mask mean / std of each z-scored slice
 
-``pack_kspace_volume`` is the k-space branch of ``build_preprocess``
+``pack_kspace_volume`` is ``build_preprocess``'s per-volume step
 (:102-216) for a volume already in memory, single-coil or multi-coil, with
-the preprocessor's own settings (N4 and NL-means among them). Reading
-fastMRI ``.h5`` files (``data/adapters.py``) is not ported yet.
+the preprocessor's own settings (N4 and NL-means among them): the volume's
+reconstruction ``target`` when it has one, which outranks the k-space as
+in the reference's record priority, else its k-space. Reading fastMRI
+``.h5`` files (``data/adapters.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,12 +91,17 @@ def save_pack(out_dir: str, pack: Dict[str, Any],
 
 
 def pack_kspace_volume(preprocessor: MRIKneePreprocessor, kspace_pair,
-                       out_dir: str, preview_max: int = 8) -> Dict[str, Any]:
+                       out_dir: str, preview_max: int = 8,
+                       target=None) -> Dict[str, Any]:
     """Preprocess one single-coil ``(S, H, W, 2)`` or multi-coil ``(S, C,
     H, W, 2)`` k-space volume on the preprocessor's device, with its
-    settings, and save its pack in ``out_dir``. Returns the summary entry
+    settings, and save its pack in ``out_dir``; with ``target``, an ``(S,
+    H, W)`` reconstruction of the volume, that is preprocessed instead
+    (``kspace_pair`` may then be None). Returns the summary entry
     ``build_preprocess`` gives a volume."""
-    pack = preprocessor.preprocess_volume_pairs(kspace_pair)
+    pack = (preprocessor.preprocess_volume_images(target, source="target")
+            if target is not None
+            else preprocessor.preprocess_volume_pairs(kspace_pair))
     save_pack(out_dir, pack, preview_max=preview_max)
     return {"output_dir": str(out_dir),
             "npz_path": os.path.join(str(out_dir), "volume.npz"),

@@ -3,7 +3,8 @@
 Counterparts in ``mri_acl_imagesegmentation_adsp_tpu/infer/segment.py``:
 ``_neighbor_stack`` (:31-37), ``segment_volume_2d`` (:86-122),
 ``tta_wrap`` (:125-152), ``segment_volumes_2d`` with ``_masked_runner``
-(:208-290) and ``evaluate_volume`` (:353-388). The JAX version runs the
+(:208-290), ``_gaussian_importance`` and ``sliding_window_3d`` (:296-347)
+and ``evaluate_volume`` (:353-388). The JAX version runs the
 batches in one ``lax.scan`` and rounds step counts to powers of two to bound
 XLA compiles; here a plain loop over batches runs under
 ``torch.inference_mode()``. ``apply_fn`` maps an NCHW batch to NCHW logits;
@@ -13,8 +14,10 @@ their device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from functools import lru_cache
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.edt import hd95_assd
@@ -121,6 +124,70 @@ def segment_volumes_2d(apply_fn: Callable, volumes: Sequence[torch.Tensor],
     out = torch.cat([head(apply_fn(x[i:i + batch_size]))
                      for i in range(0, x.shape[0], batch_size)])
     return list(torch.split(out, [v.shape[0] for v in vols]))
+
+
+@lru_cache(maxsize=8)
+def _gaussian_importance(roi: Tuple[int, int, int], sigma_scale: float
+                         ) -> np.ndarray:
+    """Separable gaussian importance map over a 3-D ROI (MONAI-style),
+    floored at 1e-3, float32."""
+    maps = []
+    for n in roi:
+        x = np.arange(n, dtype=np.float64)
+        c = (n - 1) / 2.0
+        sig = max(n * sigma_scale, 1e-3)
+        maps.append(np.exp(-0.5 * ((x - c) / sig) ** 2))
+    m = maps[0][:, None, None] * maps[1][None, :, None] * maps[2][None, None, :]
+    m = m / m.max()
+    return np.maximum(m, 1e-3).astype(np.float32)
+
+
+def _window_starts(total: int, r: int, step: int) -> List[int]:
+    """Window starts every ``step``, plus the last window flush with the
+    end; one window when it covers the whole extent."""
+    if total <= r:
+        return [0]
+    s = list(range(0, total - r + 1, step))
+    if s[-1] != total - r:
+        s.append(total - r)
+    return s
+
+
+@torch.inference_mode()
+def sliding_window_3d(apply_fn: Callable, volume: torch.Tensor,
+                      roi: Tuple[int, int, int] = (64, 160, 160),
+                      overlap: float = 0.5, blend: str = "gaussian",
+                      classes: int = 1) -> torch.Tensor:
+    """3-D sliding-window inference with overlap blending.
+
+    ``apply_fn`` maps an NCDHW patch ``(1, 1, d, h, w)`` to NCDHW logits;
+    ``volume`` is a ``(D, H, W)`` tensor. Windows of ``roi`` (clipped to
+    the volume) start every ``(1 - overlap)`` of a window, the last flush
+    with the end; their logits are blended with a Gaussian (or uniform)
+    importance map. Returns ``(C, D, H, W)`` float32 probabilities on the
+    volume's device (sigmoid for one class, softmax over classes)."""
+    vol = volume.float()
+    d, h, w = vol.shape
+    rd, rh, rw = (min(roi[0], d), min(roi[1], h), min(roi[2], w))
+    step = [max(1, int(r * (1.0 - overlap))) for r in (rd, rh, rw)]
+    imp = torch.from_numpy(
+        _gaussian_importance((rd, rh, rw), 0.125) if blend == "gaussian"
+        else np.ones((rd, rh, rw), np.float32)).to(vol.device)
+    out_c = classes if classes > 1 else 1
+    acc = torch.zeros((out_c, d, h, w), dtype=torch.float32,
+                      device=vol.device)
+    norm = torch.zeros((1, d, h, w), dtype=torch.float32, device=vol.device)
+    for z0 in _window_starts(d, rd, step[0]):
+        for y0 in _window_starts(h, rh, step[1]):
+            for x0 in _window_starts(w, rw, step[2]):
+                win = (slice(None), slice(z0, z0 + rd), slice(y0, y0 + rh),
+                       slice(x0, x0 + rw))
+                logits = apply_fn(vol[win[1:]][None, None]).float()[0]
+                acc[win] += logits * imp
+                norm[win] += imp
+    logits = acc / torch.clamp_min(norm, 1e-8)
+    return (torch.sigmoid(logits) if classes == 1
+            else torch.softmax(logits, dim=0))
 
 
 def slice_metrics(pred_mask: torch.Tensor, gt_mask: torch.Tensor,

@@ -16,6 +16,13 @@ UNet++. Conv kernels go HWIO -> OIHW, and BatchNorm's
 port's BatchNorm (``models/norm.py``) updates them as Flax's does.
 Any leaf of either tree that maps nowhere, and any BatchNorm whose params
 and stats do not pair up, raises.
+
+``state_dict_from_flax_unet3d`` carries the 3-D ``ResidualUNet3D``'s
+``params`` (it has no ``batch_stats``) to :class:`~.unet3d.ResidualUNet3D`:
+kernels DHWIO -> OIDHW, ``ConvTranspose_{n}`` kernels ``(2, 2, 2, Ci, Co)``
+flipped in space and laid out ``(Ci, Co, 2, 2, 2)``, ``GroupNorm_{j}``
+``scale`` / ``bias`` to the InstanceNorm's ``weight`` / ``bias`` and
+``PReLU_{j}`` ``negative_slope`` to its ``weight`` of shape ``(1,)``.
 """
 
 from __future__ import annotations
@@ -132,4 +139,62 @@ def state_dict_from_flax(params: Mapping[str, Any],
                 or _module_path(path[:-1], unetpp) not in used):
             raise KeyError(f"batch_stats leaf {'/'.join(path)} has no "
                            "matching BatchNorm params")
+    return sd
+
+
+def _unit3d_target(unit: str, path: tuple, n_norms: int) -> str:
+    """A leaf's module inside ``_ResUnit3D_{i}`` -> torch prefix: a unit of
+    ``n_norms`` conv-norm-act triples holds its residual conv after them."""
+    m = re.fullmatch(r"(Conv|GroupNorm|PReLU)_(\d+)", path[0])
+    if m and len(path) == 1:
+        kind, j = m.group(1), int(m.group(2))
+        if kind == "Conv":
+            return (f"{unit}.convs.{j}" if j < n_norms
+                    else f"{unit}.residual" if j == n_norms else "")
+        if j < n_norms:
+            return f"{unit}.{'norms' if kind == 'GroupNorm' else 'acts'}.{j}"
+    return ""
+
+
+def state_dict_from_flax_unet3d(params: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Carry the JAX ``ResidualUNet3D`` ``params`` into a torch state_dict
+    of :class:`~.unet3d.ResidualUNet3D` (see the module docstring). Load it
+    with ``model.load_state_dict(sd)`` (strict)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params).items():
+        mod, leaf = path[:-1], path[-1]
+        name = "/".join(path)
+        prefix = ""
+        m = re.fullmatch(r"_ResUnit3D_(\d+)", mod[0]) if mod else None
+        if m:
+            n_norms = sum(k.startswith("GroupNorm_")
+                          for k in params[mod[0]])
+            prefix = _unit3d_target(f"units.{m.group(1)}", mod[1:], n_norms)
+        elif len(mod) == 1:
+            t = re.fullmatch(r"ConvTranspose_(\d+)", mod[0])
+            prefix = (f"up.{t.group(1)}" if t
+                      else "head" if mod[0] == "Conv_0" else "")
+        if not prefix:
+            raise KeyError(f"params leaf {name} has no torch counterpart")
+        kind = mod[-1].split("_")[0]
+        if kind in ("Conv", "ConvTranspose") and leaf == "kernel":
+            if arr.ndim != 5:
+                raise ValueError(f"{name}: expected a DHWIO kernel, got "
+                                 f"shape {arr.shape}")
+            if kind == "ConvTranspose":
+                arr = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+            else:
+                arr = arr.transpose(4, 3, 0, 1, 2)
+            sd[f"{prefix}.weight"] = torch.from_numpy(np.array(arr,
+                                                               order="C"))
+        elif kind in ("Conv", "ConvTranspose") and leaf == "bias":
+            sd[f"{prefix}.bias"] = torch.from_numpy(arr.copy())
+        elif kind == "GroupNorm" and leaf in ("scale", "bias"):
+            sd[f"{prefix}.{'weight' if leaf == 'scale' else 'bias'}"] = (
+                torch.from_numpy(arr.copy()))
+        elif kind == "PReLU" and leaf == "negative_slope":
+            sd[f"{prefix}.weight"] = torch.from_numpy(arr.reshape(1).copy())
+        else:
+            raise KeyError(f"params leaf {name} has no torch counterpart")
     return sd

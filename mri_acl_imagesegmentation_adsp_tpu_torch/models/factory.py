@@ -1,14 +1,17 @@
-"""Model factory. Counterpart: ``validate_encoder_weights`` and
-``build_unet`` in ``mri_acl_imagesegmentation_adsp_tpu/models/factory.py``
-(:20-68; the reference's ``src/models/unet_factory.py``)."""
+"""Model factory. Counterpart: ``validate_encoder_weights``, ``build_unet``
+and ``build_unet3d`` in ``mri_acl_imagesegmentation_adsp_tpu/models/
+factory.py`` (:20-78; the reference's ``src/models/unet_factory.py``)."""
 
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
+import torch
 from torch import nn
 
 from .unet2d import RESNET_CFG, ResNetEncoderUNet, UNetPlusPlus
+from .unet3d import ResidualUNet3D
 
 
 def validate_encoder_weights(encoder_weights) -> str | None:
@@ -58,3 +61,14 @@ def build_unet(model: str = "unet", encoder: str = "resnet34",
         from .torch_import import apply_encoder_weights
         apply_encoder_weights(net, path, encoder)
     return net
+
+
+def build_unet3d(in_ch: int = 1, classes: int = 1,
+                 channels: Sequence[int] = (32, 64, 128, 256, 320),
+                 dtype: torch.dtype = torch.float32,
+                 remat: bool = True) -> ResidualUNet3D:
+    """The 3-D residual U-Net (``models/unet3d.py``) computing in
+    ``dtype``, its units recomputed in the backward pass under ``remat``
+    (the JAX module's default)."""
+    return ResidualUNet3D(in_ch=in_ch, classes=classes,
+                          channels=tuple(channels), dtype=dtype, remat=remat)

@@ -20,12 +20,47 @@ The module subclasses ``nn.BatchNorm2d`` for its parameters, buffers and
 state_dict keys (``weight``, ``bias``, ``running_mean``, ``running_var``,
 ``num_batches_tracked``), so checkpoints and ``models/convert.py`` are
 unchanged; only ``forward`` is its own.
+
+:func:`remat` is ``nn.remat``'s counterpart: a block recomputed in the
+backward pass (``torch.utils.checkpoint``, not reentrant). The recompute
+runs ``forward`` a second time on the same input, so it normalizes with
+the same batch statistics; it leaves the running statistics alone, which
+therefore move once a step, as the functional JAX update moves them.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
+from typing import Iterator
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+# set on the thread that recomputes a remat block in the backward pass
+_RECOMPUTE = threading.local()
+
+
+@contextmanager
+def _recomputing() -> Iterator[None]:
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def remat(on: bool, block: nn.Module, *args):
+    """``block(*args)``; when ``on`` and gradients are taken in train mode,
+    its activations are recomputed in the backward pass instead of kept.
+    BatchNorm's running statistics move only in the forward pass."""
+    if not (on and block.training and torch.is_grad_enabled()):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: (nullcontext(), _recomputing()))
+
 
 # Flax's momentum: the weight of the running value in the update
 FLAX_MOMENTUM = 0.9
@@ -70,12 +105,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean = xf.mean(dim=(0, 2, 3))
             mu2 = (xf * xf).mean(dim=(0, 2, 3))
             var = torch.maximum(mu2 - mean * mean, torch.zeros_like(mean))
-            with torch.no_grad():
-                m = FLAX_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                self.num_batches_tracked.add_(1)
+            # a remat recompute leaves them as the forward pass moved them
+            if not getattr(_RECOMPUTE, "on", False):
+                with torch.no_grad():
+                    m = FLAX_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.eps)

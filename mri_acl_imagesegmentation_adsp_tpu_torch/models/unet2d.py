@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import BatchNorm2d
+from .norm import BatchNorm2d, remat
 
 # ResNet stage definitions: name -> (blocks per stage, bottleneck?)
 RESNET_CFG = {
@@ -96,8 +96,10 @@ class ResNetEncoder(nn.Module):
     """ResNet-18/34/50 feature extractor returning
     ``[x, f1 (/2), f2 (/4), f3 (/8), f4 (/16), f5 (/32)]``."""
 
-    def __init__(self, name: str = "resnet34", in_ch: int = 1):
+    def __init__(self, name: str = "resnet34", in_ch: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         if name not in RESNET_CFG:
             raise ValueError(f"unsupported encoder {name!r}; "
                              f"one of {sorted(RESNET_CFG)}")
@@ -125,7 +127,7 @@ class ResNetEncoder(nn.Module):
         feats.append(y)
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         for i, block in enumerate(self.blocks, start=1):
-            y = block(y)
+            y = remat(self.remat, block, y)
             if i in self.stage_ends:
                 feats.append(y)
         return feats
@@ -167,15 +169,19 @@ class _DecoderBlock(_ConvBlock):
 
 class ResNetEncoderUNet(nn.Module):
     """smp.Unet-equivalent: ResNet encoder, U-Net decoder, conv3x3 head with
-    bias. NCHW in, float32 logits ``(B, classes, H, W)`` out."""
+    bias. NCHW in, float32 logits ``(B, classes, H, W)`` out. ``remat``
+    recomputes each encoder residual block and each decoder block in the
+    backward pass, as the JAX module's ``remat`` does."""
 
     def __init__(self, encoder: str = "resnet34", in_ch: int = 1,
                  classes: int = 1,
-                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 remat: bool = False):
         super().__init__()
         self.encoder_name, self.classes = encoder, int(classes)
         self.decoder_channels = tuple(decoder_channels)
-        self.encoder = ResNetEncoder(encoder, in_ch)
+        self.remat = bool(remat)
+        self.encoder = ResNetEncoder(encoder, in_ch, remat=remat)
         ch = self.encoder.channels
         # skips, deepest first, excluding the bottleneck f5: f4 f3 f2 f1 None
         skip_ch = [ch[4], ch[3], ch[2], ch[1], 0]
@@ -193,7 +199,7 @@ class ResNetEncoderUNet(nn.Module):
         skips = [feats[4], feats[3], feats[2], feats[1], None]
         y = feats[5]
         for block, skip in zip(self.decoder, skips):
-            y = block(y, skip)
+            y = remat(self.remat, block, y, skip)
         return self.head(y).float()
 
 

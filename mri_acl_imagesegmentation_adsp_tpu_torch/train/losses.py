@@ -1,10 +1,12 @@
-"""Segmentation losses (2-D), computed in f32 whatever the logits' dtype.
+"""Segmentation losses, computed in f32 whatever the logits' dtype.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/losses.py:25-244``:
-the binary losses (:29-103), the multiclass losses (:106-131) and
-``LossManager`` (:173-235). The 3-D DiceCE losses (:134-170) are not ported
-yet. Shapes: binary logits and targets ``(N, 1, H, W)``; multiclass logits
-``(N, C, H, W)`` with integer targets ``(N, H, W)``.
+the binary losses (:29-103), the multiclass losses (:106-131), the 3-D
+DiceCE losses (:134-166) and ``LossManager`` (:173-235). Shapes: binary
+logits and targets ``(N, 1, H, W)``; multiclass logits ``(N, C, H, W)``
+with integer targets ``(N, H, W)``; the 3-D losses take ``(N, C, D, H,
+W)`` logits with ``(N, 1, D, H, W)`` float targets (binary) or ``(N, D, H,
+W)`` labels.
 
 ``max(x, 0)`` is ``torch.maximum`` against zeros, whose gradient at a tie
 splits in half as ``jnp.maximum``'s does (``clamp`` would give it whole).
@@ -112,6 +114,39 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
     logp = torch.log_softmax(logits.float(), dim=1)
     nll = -torch.gather(logp, 1, targets.long()[:, None])
     return torch.mean(nll)
+
+
+def _dice_3d(p: torch.Tensor, t: torch.Tensor, smooth_nr: float,
+             smooth_dr: float) -> torch.Tensor:
+    """MONAI's per-sample, per-class soft Dice loss (``batch=False``, no
+    masking of absent classes), mean over samples and classes."""
+    dims = tuple(range(2, p.dim()))
+    inter = torch.sum(p * t, dim=dims)
+    denom = torch.sum(p, dim=dims) + torch.sum(t, dim=dims)
+    return torch.mean(1.0 - (2.0 * inter + smooth_nr) / (denom + smooth_dr))
+
+
+def dice_ce_loss_3d_binary(logits: torch.Tensor, targets: torch.Tensor,
+                           smooth_nr: float = 1e-5,
+                           smooth_dr: float = 1e-5) -> torch.Tensor:
+    """MONAI ``DiceCELoss(sigmoid=True)`` for binary ``(N, 1, D, H, W)``:
+    the per-sample soft Dice plus the BCE, summed 1:1."""
+    p = torch.sigmoid(logits.float())
+    return (_dice_3d(p, targets.float(), smooth_nr, smooth_dr)
+            + soft_bce_loss(logits, targets))
+
+
+def dice_ce_loss_3d_multiclass(logits: torch.Tensor, targets: torch.Tensor,
+                               smooth_nr: float = 1e-5,
+                               smooth_dr: float = 1e-5) -> torch.Tensor:
+    """MONAI ``DiceCELoss(softmax=True, to_onehot_y=True)``: the per-sample
+    per-class soft Dice of softmax probabilities against one-hot labels
+    (background included) plus the softmax CE, summed 1:1."""
+    c = logits.shape[1]
+    p = torch.softmax(logits.float(), dim=1)
+    t1h = _one_hot(targets, c).reshape(p.shape)
+    return (_dice_3d(p, t1h, smooth_nr, smooth_dr)
+            + cross_entropy_loss(logits, targets))
 
 
 _BINARY = {"dice_bce": "dice_bce", "bce_dice": "dice_bce",

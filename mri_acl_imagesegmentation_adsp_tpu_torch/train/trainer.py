@@ -27,7 +27,10 @@ Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/trainer.py``:
   ``request_preempt()`` always, into a snapshot at the next chunk or epoch
   end and a clean stop;
 - ``profile_epochs``: a ``torch.profiler`` trace of the first epochs' steps
-  in ``<out_dir>/profile/epoch_NNN.pt.trace.json``.
+  in ``<out_dir>/profile/epoch_NNN.pt.trace.json``;
+- ``remat``: the U-Net's encoder and decoder blocks recomputed in the
+  backward pass (``models/norm.py:remat``; BatchNorm's running statistics
+  still move once a step); as in JAX, the UNet++ ignores it.
 
 Randomness comes from ``args.seed``: the weights from a CPU generator, the
 permutations and the augmentation from two generators on the device. A
@@ -111,7 +114,7 @@ class UNet2DArgs:
     profile_epochs: int = 0
     store_sharded: bool = False
     multihost: bool = False
-    remat: bool = False
+    remat: bool = False                      # per-block backward remat (unet)
     accum_steps: int = 1                     # microbatches per update
     ckpt_backend: str = "msgpack"
     preempt_save: bool = False
@@ -122,7 +125,7 @@ class UNet2DArgs:
 # backend with its async snapshots is a JAX library; "msgpack" names the
 # default snapshot format, which here is the port's own
 _NOT_PORTED = {
-    "multihost": False, "store_sharded": False, "remat": False,
+    "multihost": False, "store_sharded": False,
     "ckpt_async": False, "ckpt_backend": "msgpack",
 }
 _COUNTS = ("save_resume_every", "save_resume_steps", "resume_keep",
@@ -221,8 +224,10 @@ class UNet2DTrainer:
     def _build_engine(self) -> None:
         a = self.args
         in_ch = 3 if (a.k == 1 and a.imagenet_norm) else a.k
+        extra = ({"remat": True} if a.remat and a.model.lower() == "unet"
+                 else {})
         model = build_unet(a.model, a.encoder, "none", in_ch=in_ch,
-                           classes=a.classes)
+                           classes=a.classes, **extra)
         init_weights(model, torch.Generator().manual_seed(a.seed))
         ew_path = validate_encoder_weights(a.encoder_weights)
         if ew_path is not None:

@@ -4,7 +4,9 @@ The port's own copy of ``tests/oracles.py:122-140`` (``synthetic_knee``,
 ``synthetic_kspace_volume``): a bright Gaussian blob on a dark noisy
 background with sparse bright specks, like a magnitude MRI slice, and its
 centered orthonormal 2-D FFT as a fastMRI-style ``(S, H, W, 2)`` float32
-real pair; multi-coil k-space, ``(S, C, H, W, 2)``, of the same slices
+real pair (the oracle's complex64 k-space split into real and imaginary
+parts, bit for bit; ``scripts/make_corpus.py``'s volume ``i`` is
+``synthetic_knee_volume(2024 + i, 112, 368, 320)`` and its k-space); multi-coil k-space, ``(S, C, H, W, 2)``, of the same slices
 seen through smooth complex coil sensitivities; the masks that hold the
 connected-components kernel at its edges; and a seeded ResNet state_dict
 in torchvision's layout, the kind of file ``encoder_weights`` loads."""
@@ -32,13 +34,18 @@ def _fft2c(x: np.ndarray) -> np.ndarray:
                                        norm="ortho"), axes=(-2, -1))
 
 
+def synthetic_knee_volume(seed: int, s: int = 8, h: int = 640,
+                          w: int = 368) -> np.ndarray:
+    """``(s, h, w)`` float32 synthetic slices made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return np.stack([synthetic_knee(rng, h, w) for _ in range(s)])
+
+
 def synthetic_kspace_pairs(seed: int, s: int = 8, h: int = 640,
                            w: int = 368) -> np.ndarray:
     """``(s, h, w, 2)`` float32 k-space of ``s`` synthetic slices made from
     ``seed`` (the fastMRI knee single-coil layout at the defaults)."""
-    rng = np.random.default_rng(seed)
-    imgs = np.stack([synthetic_knee(rng, h, w) for _ in range(s)])
-    ksp = _fft2c(imgs)
+    ksp = _fft2c(synthetic_knee_volume(seed, s, h, w))
     return np.stack([ksp.real, ksp.imag], axis=-1).astype(np.float32)
 
 

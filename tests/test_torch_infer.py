@@ -244,10 +244,11 @@ def test_infer_cli_matches_jax_cli(tmp_path, capsys):
 
 
 def test_infer_cli_refuses_what_is_not_ported(capsys):
-    """The 3-D flags are unrecognized, multi-device inference raises
-    naming its flag, and a run needs a checkpoint or an artifact."""
-    for flag, says in ((["--ckpt3d", "b.ckpt"], "unrecognized arguments"),
-                       (["--spatial-parallel", "2"], "unrecognized"),
+    """Multi-device inference, 2-D or depth-sharded 3-D, raises naming
+    its flag, and a run needs a checkpoint or an artifact."""
+    for flag, says in ((["--ckpt3d", "b.ckpt", "--spatial-parallel", "2"],
+                        "--spatial-parallel 2"),
+                       (["--spatial-parallel", "2"], "--spatial-parallel 2"),
                        (["--data-parallel", "2"], "--data-parallel 2"),
                        (["--quant", "int4"], "invalid choice")):
         with pytest.raises(SystemExit) as e:

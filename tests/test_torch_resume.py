@@ -250,7 +250,7 @@ def test_snapshots_load_weights_only(tmp_path):
 
 def test_refuses_what_is_not_ported(lists):
     for kw in ({"ckpt_backend": "orbax"}, {"ckpt_async": True},
-               {"remat": True}, {"save_resume_steps": -1}):
+               {"store_sharded": True}, {"save_resume_steps": -1}):
         flag = "--" + next(iter(kw)).replace("_", "-")
         with pytest.raises(ValueError, match=flag):
             UNet2DTrainer(_args(lists, "refused", **kw), device="cpu")

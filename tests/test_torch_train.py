@@ -456,7 +456,8 @@ def test_committed_args_json_files_replay():
 
 @pytest.mark.parametrize("field,value", [
     ("data_parallel", 2), ("multihost", True), ("store_sharded", True),
-    ("remat", True), ("ckpt_async", True), ("ckpt_backend", "orbax"),
+    ("store_dtype", "float16"), ("ckpt_async", True),
+    ("ckpt_backend", "orbax"),
     ("save_resume_every", -1), ("save_resume_steps", -5),
     ("resume_keep", -2), ("profile_epochs", -1),
     ("encoder_weights", "/nonexistent/resnet.pt"),
