@@ -93,7 +93,21 @@ Phases, each printing one JSON line with its seconds:
      peak memory with remat on and off; one f32 step of a narrow model card
      vs CPU (TF32 off); a narrow run preempted and resumed bit-equal to a
      straight one (cuDNN deterministic). The 3-D path launches no mask
-     kernel.
+     kernel;
+ 12  classical recon and the ingest route: ``t2_reconstruction`` at the
+     protocol size of ``bench.py:bench_grappa`` (3 averages, 10 slices, 20
+     coils, 640x368, R=3, 32 ACS lines) and ``dwi_reconstruction`` at
+     ``scripts/measure_dwi.py``'s (51 averages, 8 slices, 12 coils,
+     200x104, R=2; the EPI timing from an ISMRMRD header), each timed over
+     3 runs after a warm-up with its peak memory, and held against the port
+     on the CPU on one slice (T2: slice 0 of the card's case; DWI: every
+     output map); four pickled 35x640x368 magnitude volumes through
+     ``build_preprocess`` with ``KneePckAdapter`` (each mask kernel once a
+     volume), again with ``skip_existing`` (nothing redone), and the packs
+     through the slice store's native npz loader, bit-equal to
+     ``np.load``; the ``.h5`` route's refusal without h5py (its message
+     checked), or a fixture read where h5py is installed. The recon
+     launches no mask kernel.
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -110,6 +124,7 @@ import faulthandler
 import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -128,10 +143,14 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.cli import (
     infer, launcher, quantize, serve)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
     load_model_from_ckpt, model_apply_fn)
+from mri_acl_imagesegmentation_adsp_tpu_torch import native
+from mri_acl_imagesegmentation_adsp_tpu_torch.data import recon_data
+from mri_acl_imagesegmentation_adsp_tpu_torch.data.adapters import (
+    FastMRISinglecoilAdapter, KneePckAdapter)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
     SliceStore, gather_batch)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
-    pack_kspace_volume)
+    build_preprocess, pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
@@ -147,6 +166,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import (
     init_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet3d import (
     init_weights3d)
+from mri_acl_imagesegmentation_adsp_tpu_torch.native import (
+    _build as native_build)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops import edt
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.kernels import (
     _build, components, morphology)
@@ -154,9 +175,11 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.ops.maskops import (
     open_closed_otsu_mask)
 from mri_acl_imagesegmentation_adsp_tpu_torch.ops.restoration import (
     n4_bias_correction)
+from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
+    dwi_reconstruction, t2_reconstruction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
-    corpus_run, probe_label_prop)
+    corpus_run, probe_label_prop, probe_recon)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -174,8 +197,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.device import (
     f32_on_card)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
-    component_masks, synthetic_kspace_pairs, synthetic_multicoil_kspace_pairs,
-    torchvision_resnet_state_dict)
+    component_masks, synthetic_knee_volume, synthetic_kspace_pairs,
+    synthetic_multicoil_kspace_pairs, torchvision_resnet_state_dict)
 
 WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -238,6 +261,14 @@ STEP3D_GRAD_RTOL = 1e-3    # each gradient, times its max |g|, plus ...
 STEP3D_GRAD_FLOOR = 1e-5   # ... this times the net's max |g| (the conv
                            # biases ahead of a norm have zero gradients in
                            # exact arithmetic)
+T2_CASE, DWI_CASE = probe_recon.T2_CASE, probe_recon.DWI_CASE
+RECON_TIMED_RUNS = 3       # after one warm-up run
+RECON_REL = 1e-4           # a pixel "past": |card - CPU| > this x max|CPU|
+RECON_CARD_REL = 1e-3      # card vs CPU recon, relative to max |CPU| ...
+RECON_PIXELS_PAST = 1e-3   # ... or, for the thresholded DWI maps, at most
+DWI_THRESHOLDED = ("adc_map", "b1500")  # this share of pixels past
+PCK_VOLUMES = 4            # pickled magnitude volumes through the ingest
+PCK_VOLUME = (35, 640, 368)
 
 
 def emit(obj: dict) -> None:
@@ -2373,6 +2404,226 @@ def phase_3d(dev: torch.device, defaults: dict, tmp: str,
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 12: classical recon and the ingest route
+# --------------------------------------------------------------------------
+
+def _timed_recon(run, slices: int) -> dict:
+    """One warm-up run, then RECON_TIMED_RUNS by the host clock with the
+    card synchronized; the last run's output and the peak memory."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(RECON_TIMED_RUNS):
+        t1 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    return out, {"case_s": secs, "slice_s": [t / slices for t in secs],
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _maps_vs_cpu(got: dict, want: dict) -> dict:
+    """Per output key: max |card - CPU| / max |CPU| and the pixels past
+    RECON_REL of the CPU map's maximum."""
+    if set(got) != set(want):
+        raise AssertionError(f"keys {sorted(got)} vs {sorted(want)}")
+    out = {}
+    for key in sorted(want):
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{key}: {a.shape} vs {b.shape}, finite "
+                                 f"{np.isfinite(a).all()}")
+        scale = float(np.abs(b).max())
+        diff = np.abs(a - b)
+        out[key] = {"rel_err": float(diff.max()) / scale,
+                    "pixels_past": int((diff > RECON_REL * scale).sum()),
+                    "pixels": int(b.size)}
+    return out
+
+
+def t2_protocol(dev: torch.device) -> dict:
+    """The T2 protocol case on the card, timed, against the port on the CPU
+    on slice 0 (slices are independent)."""
+    k, calib = probe_recon.t2_protocol_case(0, T2_CASE)
+    run = lambda: t2_reconstruction(k, calib, device=dev)  # noqa: E731
+    got, timing = _timed_recon(run, T2_CASE[1])
+    t1 = time.perf_counter()
+    want = t2_reconstruction(k[:, :1], calib[:1], device="cpu")
+    cpu_s = time.perf_counter() - t1
+    vs = _maps_vs_cpu({"reconstruction_rss": got["reconstruction_rss"][:1]},
+                      want)
+    shape = got["reconstruction_rss"].shape
+    if shape != (T2_CASE[1], min(320, T2_CASE[3]), min(320, T2_CASE[4])) or (
+            vs["reconstruction_rss"]["rel_err"] > RECON_CARD_REL):
+        raise AssertionError(f"T2 protocol case: {shape}, {vs}")
+    return {"case": list(T2_CASE), "r": probe_recon.T2_R,
+            "acs": probe_recon.T2_ACS, "output": list(shape), **timing,
+            "cpu_one_slice_s": cpu_s,
+            "card_vs_cpu_slice0": vs["reconstruction_rss"],
+            "stages_s": probe_recon.t2_stages(dev, k, calib),
+            "traced": probe_recon.card_busy(run)}
+
+
+def dwi_protocol(dev: torch.device) -> dict:
+    """The DWI protocol case on the card, timed, and one slice on the card
+    against the port on the CPU for every output key (the b1500 noise floor
+    is a median over the whole volume, so both sides run the same slice)."""
+    k, calib, sens, hdr = probe_recon.dwi_protocol_case(1, DWI_CASE)
+    run = lambda: dwi_reconstruction(  # noqa: E731
+        k, calib, sens, hdr, device=dev)
+    got, timing = _timed_recon(run, DWI_CASE[1])
+    one = (k[:, :1], calib[:1], sens[:1], hdr)
+    t1 = time.perf_counter()
+    want = dwi_reconstruction(*one, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    vs = _maps_vs_cpu(dwi_reconstruction(*one, device=dev), want)
+    shapes = {key: list(v.shape) for key, v in got.items()}
+    bad = [key for key, v in vs.items()
+           if v["rel_err"] > RECON_CARD_REL and (
+               key not in DWI_THRESHOLDED
+               or v["pixels_past"] > RECON_PIXELS_PAST * v["pixels"])]
+    crop = (DWI_CASE[1], min(100, DWI_CASE[3]), min(100, DWI_CASE[4]))
+    if bad or set(map(tuple, shapes.values())) != {crop}:
+        raise AssertionError(f"DWI protocol case: {shapes}, {vs}")
+    return {"case": list(DWI_CASE), "r": probe_recon.DWI_R, "epi": hdr,
+            **timing, "cpu_one_slice_s": cpu_s, "keys": sorted(got),
+            "card_vs_cpu_one_slice": vs,
+            "stages_s": probe_recon.dwi_stages(dev, k, calib, sens, hdr),
+            "traced": probe_recon.card_busy(run)}
+
+
+def _write_pickled_volumes(root: str) -> list:
+    """PCK_VOLUMES seeded magnitude volumes, one ``{"data": (S, H, W)
+    float32}`` pickle each."""
+    paths = []
+    for i in range(PCK_VOLUMES):
+        imgs = synthetic_knee_volume(100 + i, *PCK_VOLUME)
+        path = os.path.join(root, f"vol{i}.pck")
+        with open(path, "wb") as f:
+            pickle.dump({"data": imgs}, f)
+        paths.append(path)
+    return paths
+
+
+def pickle_ingest(dev: torch.device, tmp: str) -> dict:
+    """``build_preprocess`` with ``KneePckAdapter`` on the card: each mask
+    kernel launched once a volume (counted from 0 just before), nothing
+    redone with ``skip_existing``; then the packs through the slice store's
+    native npz loader, bit-equal to ``np.load``."""
+    root, art = os.path.join(tmp, "pck"), os.path.join(tmp, "pck_art")
+    os.makedirs(root)
+    _write_pickled_volumes(root)
+    spec = dict(root_dir=root, out_dir=art, height=320, width=320,
+                slice_keep="0.3,0.7", clip="1.0,99.5", use_n4=False,
+                use_denoise=False, preview_max=6, device=str(dev))
+    reset_mask_launches()
+    t1 = time.perf_counter()
+    first = build_preprocess(SimpleNamespace(**spec), KneePckAdapter())
+    build_s = time.perf_counter() - t1
+    launches = mask_launches()
+    t1 = time.perf_counter()
+    again = build_preprocess(SimpleNamespace(**spec, skip_existing=True),
+                             KneePckAdapter())
+    skip_s = time.perf_counter() - t1
+    redo = mask_launches()
+    files = [e["npz_path"] for e in first]
+    t1 = time.perf_counter()
+    store = SliceStore.from_files(files, workers=PCK_VOLUMES)
+    load_s = time.perf_counter() - t1
+    ref = []
+    for f in files:
+        with np.load(f) as z:
+            ref.append((z["img"], z["msk"]))
+    equal = (np.array_equal(store.images, np.concatenate(
+        [img[:, 0] for img, _ in ref])) and np.array_equal(
+        store.masks, np.concatenate([msk for _, msk in ref]).astype(
+            np.int32)))
+    single = [native.load_volume_npz(f) for f in files]
+    equal = equal and all(
+        x is not None and np.array_equal(x[0], img)
+        and np.array_equal(x[1], msk) for x, (img, msk) in zip(single, ref))
+    out = {"volumes": PCK_VOLUMES, "volume": list(PCK_VOLUME),
+           "launches": launches, "build_s": build_s,
+           "slices": [e["num_slices"] for e in first],
+           "skip_existing": {"s": skip_s, "launches": redo,
+                             "skipped": sum(bool(e.get("skipped_existing"))
+                                            for e in again)},
+           "native_npz_built": native.native_available(),
+           "native_npz_error": native_build.ERRORS.get("npz_loader"),
+           "store_load_s": load_s, "store_equals_np_load": equal}
+    if (set(launches.values()) != {PCK_VOLUMES} or redo != launches
+            or out["skip_existing"]["skipped"] != PCK_VOLUMES
+            or not out["native_npz_built"] or not equal
+            or out["slices"] != [14] * PCK_VOLUMES):
+        raise AssertionError(f"the pickle ingest route: {out}")
+    return out
+
+
+def h5_route(tmp: str) -> dict:
+    """Without h5py, every ``.h5`` entry point raises an ImportError naming
+    it; where h5py is installed, a written fixture is read instead."""
+    root = os.path.join(tmp, "h5")
+    os.makedirs(root)
+    try:
+        import h5py
+    except ImportError:
+        messages = {}
+        for name, call in (
+                ("discover_records", lambda: FastMRISinglecoilAdapter(
+                    root_dir=root).discover_records()),
+                ("load_file_T2", lambda: recon_data.load_file_T2(
+                    os.path.join(root, "case.h5")))):
+            try:
+                call()
+            except ImportError as exc:
+                messages[name] = str(exc)
+            else:
+                raise AssertionError(f"{name} served without h5py")
+        if not all("h5py" in m for m in messages.values()):
+            raise AssertionError(f"refusals that do not name h5py: "
+                                 f"{messages}")
+        return {"h5py": False, "native_h5": native.native_h5_available(),
+                "refusals": messages}
+    path = os.path.join(root, "vol.h5")
+    ksp = probe_recon.complex_normal(np.random.default_rng(7), (4, 64, 48))
+    with h5py.File(path, "w") as hf:
+        hf.create_dataset("kspace", data=ksp, chunks=(1, 64, 48),
+                          compression="gzip")
+    vol = FastMRISinglecoilAdapter(root_dir=root).load_volume(path)
+    if not np.array_equal(vol["kspace_pair"],
+                          np.stack([ksp.real, ksp.imag], -1)):
+        raise AssertionError("the .h5 fixture read back differs")
+    return {"h5py": True, "native_h5": native.native_h5_available(),
+            "read_fixture": list(ksp.shape)}
+
+
+def phase_recon_ingest(dev: torch.device, defaults: dict, tmp: str,
+                       smi: str) -> dict:
+    """Phase 12 from torch's own precision flags (the recon sets TF32 off
+    itself). Returns the mask kernels' launches on the recon path (none)
+    and on the pickle ingest path (one each a volume)."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    reset_mask_launches()
+    out = {"card": smi, "t2": t2_protocol(dev)}
+    out["dwi"] = dwi_protocol(dev)
+    recon_launches = mask_launches()
+    if any(recon_launches.values()):
+        raise AssertionError(f"the recon launched mask kernels: "
+                             f"{recon_launches}")
+    out["ingest_pck"] = pickle_ingest(dev, tmp)
+    out["h5"] = h5_route(tmp)
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 12 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
+    emit({"phase": "recon_ingest", "seconds": time.perf_counter() - t0,
+          "launches_recon": recon_launches, **out})
+    return {"recon": recon_launches,
+            "ingest_pck": out["ingest_pck"]["launches"]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2405,6 +2656,7 @@ def main() -> int:
         corpus = phase_corpus(dev, defaults, tmp)
         by_path["corpus"] = corpus["launches"]
         by_path["patch3d"] = phase_3d(dev, defaults, tmp, corpus["lists"])
+        by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

@@ -9,9 +9,14 @@ the ``--preset`` overlay, plus ``--device`` (default ``cuda``). Flags
 cannot be abbreviated, so an abbreviation cannot slip past the preset's
 explicit-flag check.
 
-The preprocess stage reads fastMRI ``.h5`` files, whose adapters are not
-ported yet: it raises. Packs made by ``data/packer.py:pack_kspace_volume``
-train with ``--skip-preprocess``. The TPU extension flags are accepted and
+The preprocess stage reads the fastMRI single-coil ``.h5`` files under
+``--dataset-root`` (default ``$FASTMRI_ROOT``) through
+``data/adapters.py:FastMRISinglecoilAdapter`` and packs them with
+``data/packer.py:build_preprocess`` on ``--device`` (``--skip-existing``
+keeps complete packs); reading ``.h5`` needs h5py, and without it the stage
+raises an ImportError that names it. Packs made in memory
+(``data/packer.py:pack_kspace_volume``, ``tools/make_corpus.py``) train
+with ``--skip-preprocess``. The TPU extension flags are accepted and
 passed on: ``--resume``, ``--save-resume-every``, ``--save-resume-steps``,
 ``--resume-keep``, ``--preempt-save``, ``--profile-epochs``, ``--remat``
 and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
@@ -19,8 +24,8 @@ and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
 ``--data-parallel`` above 1).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.launcher \\
-      --skip-preprocess --artifact-dir artifacts --out-dir runs/port \\
-      --epochs 2 --batch-size 8 --device cuda
+      --dataset-root /data/singlecoil_train --artifact-dir artifacts \\
+      --out-dir runs/port --epochs 2 --batch-size 8 --device cuda
 """
 
 from __future__ import annotations
@@ -30,8 +35,11 @@ import os
 import random
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
+from ..data.adapters import FastMRISinglecoilAdapter
+from ..data.packer import build_preprocess
 from ..train.trainer import UNet2DArgs, UNet2DTrainer
 
 # UNet2DArgs fields the launcher forwards verbatim (flag name == field name,
@@ -67,6 +75,25 @@ def _split_ratio(value: str) -> float:
 # ---------------------------------------------------------------------------
 # Stages
 # ---------------------------------------------------------------------------
+
+def run_preprocess(dataset_root: Path, out_dir: Path, height: int,
+                   width: int, slice_keep: str, clip: str, use_n4: bool,
+                   use_denoise: bool, preview_max: int,
+                   skip_existing: bool = False, device: str = "cuda") -> int:
+    """Stage 1: the raw ``.h5`` volumes under ``dataset_root`` ->
+    ``volume.npz`` packs under ``out_dir``, preprocessed on ``device``;
+    returns the number of packs."""
+    spec = SimpleNamespace(
+        root_dir=str(dataset_root), out_dir=str(out_dir), height=height,
+        width=width, slice_keep=slice_keep, clip=clip, use_n4=use_n4,
+        use_denoise=use_denoise, preview_max=preview_max,
+        skip_existing=skip_existing, device=device)
+    print(f"[launcher] preprocess: {dataset_root} -> {out_dir}")
+    packs = build_preprocess(
+        spec, adapter=FastMRISinglecoilAdapter(root_dir=str(dataset_root)))
+    print(f"[launcher] preprocess done: {len(packs)} volume pack(s)")
+    return len(packs)
+
 
 def collect_npz(artifact_dir: Path) -> List[Path]:
     """Every volume.npz under the artifact tree, sorted (the base order the
@@ -254,10 +281,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if ns.skip_preprocess:
         print("[launcher] stage skipped: preprocess")
     else:
-        parser.error(
-            "the preprocess stage reads fastMRI .h5 files, and the .h5 "
-            "adapters (data/adapters.py) are not ported yet; make packs with "
-            "data/packer.py:pack_kspace_volume and pass --skip-preprocess")
+        if ns.dataset_root is None:
+            parser.error("no dataset root: pass --dataset-root or set "
+                         "FASTMRI_ROOT (or use --skip-preprocess)")
+        run_preprocess(Path(ns.dataset_root).resolve(), artifact_dir,
+                       ns.height, ns.width, ns.slice_keep, ns.clip,
+                       ns.use_n4, ns.use_denoise, ns.preview_max,
+                       skip_existing=ns.skip_existing, device=ns.device)
 
     made_train = made_val = None
     if ns.skip_split:

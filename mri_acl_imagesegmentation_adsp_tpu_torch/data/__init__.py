@@ -1,1 +1,2 @@
-"""Data pipeline of the port: the preprocessing chain."""
+"""Data pipeline of the port: raw-data adapters, the preprocessing chain,
+packs, the slice stores and the recon loaders."""

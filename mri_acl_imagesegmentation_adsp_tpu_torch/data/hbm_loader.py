@@ -9,8 +9,11 @@ flat ``(N, H, W)`` arrays on the device; a training step forms its batch by
 crosses from the host. The 2.5-D neighbour channels are an ``(N, k)`` index
 table, edge-clamped inside each volume.
 
-Volumes are read with ``np.load`` on ``workers`` threads. The native C++
-reader and the store sharded over several devices are not ported yet.
+Volumes are read through the native C++ npz loader (``native/loader.py``):
+one call a volume, or with ``workers`` all of them on its C++ thread pool;
+``np.load`` reads a volume the native loader cannot (no ``g++``, an
+unusual member). The store sharded over several devices is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..native import load_volume_npz, load_volumes_npz
+
 
 def read_list(txt_path: str) -> List[str]:
     """One ``volume.npz`` path per non-empty line."""
@@ -29,9 +34,18 @@ def read_list(txt_path: str) -> List[str]:
         return [ln.strip() for ln in f if ln.strip()]
 
 
+def _store_types(img: np.ndarray, msk: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    return img.astype(np.float32, copy=False), msk.astype(np.int32)
+
+
 def _load_one(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    with np.load(path) as z:
-        return z["img"].astype(np.float32), z["msk"].astype(np.int32)
+    """One volume's ``(img, msk)``: the native reader, else ``np.load``."""
+    loaded = load_volume_npz(path)
+    if loaded is None:
+        with np.load(path) as z:
+            loaded = z["img"], z["msk"]
+    return _store_types(*loaded)
 
 
 @dataclass
@@ -51,13 +65,21 @@ class SliceStore:
     def from_files(cls, files: Sequence[str],
                    workers: int = 0) -> "SliceStore":
         """Load ``img`` ``(S, 1, H, W)`` and ``msk`` ``(S, H, W)`` of each
-        pack, on ``workers`` threads when there are several files."""
+        pack; with ``workers`` and several files, on the native loader's
+        thread pool (or ``workers`` threads where it is unavailable)."""
         if not files:
             raise ValueError("Empty volume list")
+        loaded = None
         if workers and len(files) > 1:
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                loaded = list(ex.map(_load_one, files))
-        else:
+            bulk = load_volumes_npz(list(files), threads=workers)
+            if bulk is not None:
+                loaded = [_load_one(p) if pair is None
+                          else _store_types(*pair)
+                          for p, pair in zip(files, bulk)]
+            else:
+                with ThreadPoolExecutor(max_workers=workers) as ex:
+                    loaded = list(ex.map(_load_one, files))
+        if loaded is None:
             loaded = [_load_one(p) for p in files]
         sizes = np.asarray([x.shape[0] for x, _ in loaded], np.int64)
         return cls(

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, and the training,
-evaluation, bf16 and int8 inference paths against the CPU, on the card.
+evaluation, bf16 and int8 inference paths, the classical recon and the
+pickle ingest route against the CPU, on the card.
 
 Run on a machine with an NVIDIA card and nvcc (``--noconftest``: that
 machine has no JAX, which tests/conftest.py imports):
@@ -449,3 +450,127 @@ def test_bf16_logits_on_the_card_match_the_cpu(card):
     assert float((got - want).abs().max()) <= bound
     far = want.abs() > bound
     assert torch.equal((got > 0)[far], (want > 0)[far])
+
+
+# ---------------------------------------------------------------------------
+# Classical recon and the pickle ingest route
+# ---------------------------------------------------------------------------
+
+RECON_REL = 1e-4     # card vs CPU recon, relative to the CPU map's max
+EPI = {"rampUpTime": 100.0, "rampDownTime": 100.0, "flatTopTime": 400.0,
+       "acqDelayTime": 10.0, "echoSpacing": 1.0}
+
+
+def _cplx(rng, shape, scale=1.0):
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            * scale).astype(np.complex64)
+
+
+def _flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def test_t2_reconstruction_on_the_card_matches_the_cpu(card):
+    """Two slices of 8 coils at 96 x 64, R = 3 with an ACS band: the card
+    (TF32 off inside the recon, torch's flags left as found) within 1e-4
+    of the image maximum of the CPU."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
+        t2_reconstruction)
+    rng = np.random.default_rng(0)
+    k = _cplx(rng, (3, 2, 8, 96, 64))
+    keep = np.zeros(64, bool)
+    keep[::3] = True
+    keep[26:38] = True
+    k[..., ~keep] = 0
+    calib = _cplx(rng, (2, 8, 96, 16))
+    before = _flags()
+    got = t2_reconstruction(k, calib, hdr=4.0, device=card)
+    assert _flags() == before
+    want = t2_reconstruction(k, calib, hdr=4.0, device="cpu")
+    g, w = got["reconstruction_rss"], want["reconstruction_rss"]
+    assert g.shape == w.shape == (2, 96, 72)
+    assert np.abs(g - w).max() <= RECON_REL * np.abs(w).max()
+
+
+def test_dwi_reconstruction_on_the_card_matches_the_cpu(card):
+    """51 averages, 2 slices of 2 coils at 200 x 24, R = 2: every map
+    within 1e-4 of its maximum of the CPU's, except at most 0.1 % of the
+    pixels of the thresholded ADC and b1500 maps."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
+        dwi_reconstruction)
+    rng = np.random.default_rng(1)
+    k = _cplx(rng, (51, 2, 2, 200, 24), 0.1)
+    keep = np.zeros(24, bool)
+    keep[::2] = True
+    keep[8:16] = True
+    k[..., ~keep] = 0
+    calib, sens = _cplx(rng, (2, 2, 200, 24), 0.1), _cplx(rng, (2, 2, 200,
+                                                               24))
+    got = dwi_reconstruction(k, calib, sens, EPI, device=card)
+    want = dwi_reconstruction(k, calib, sens, EPI, device="cpu")
+    assert set(got) == set(want)
+    for key in want:
+        past = (np.abs(got[key] - want[key])
+                > RECON_REL * np.abs(want[key]).max()).sum()
+        limit = 1e-3 * want[key].size if key in ("adc_map", "b1500") else 0
+        assert past <= limit, (key, past)
+
+
+def test_grappa_fill_on_the_card_with_the_cpu_weights(card):
+    """The CPU's weights carried to the card: the filled k-space agrees to
+    f32 rounding (1e-5 of its largest magnitude), the solve kept out."""
+    from mri_acl_imagesegmentation_adsp_tpu_torch.recon.grappa import Grappa
+    rng = np.random.default_rng(2)
+    k = _cplx(rng, (2, 3, 48, 6, 40))               # (S, B, X, C, Y)
+    k[:, :, 1::2] = 0
+    calibs = _cplx(rng, (2, 16, 6, 40))
+    cpu = Grappa(k[0, 0], coil_axis=1, device="cpu")
+    on_card = Grappa(k[0, 0], coil_axis=1, device=card)
+    weights = cpu.compute_weights_batch(calibs)
+    want = cpu.apply_weights_pair_multi(torch.from_numpy(k), weights)
+    got = on_card.apply_weights_pair_multi(torch.from_numpy(k).to(card),
+                                           weights).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    grams = on_card.compute_grams(calibs)
+    want_g = cpu.compute_grams(calibs)
+    assert np.abs(grams - want_g).max() <= 1e-5 * np.abs(want_g).max()
+
+
+def test_pickle_ingest_on_the_card_launches_each_mask_kernel_once_a_volume(
+        card, tmp_path):
+    """build_preprocess with KneePckAdapter on the card: one open_close and
+    one label_components launch a volume, and the packs as the CPU's
+    (masks in at most 0.1 % of pixels, tensor within 1e-4 on the slices
+    whose masks agree)."""
+    import pickle
+    from types import SimpleNamespace
+    from mri_acl_imagesegmentation_adsp_tpu_torch.data.adapters import (
+        KneePckAdapter)
+    from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
+        build_preprocess)
+    root = tmp_path / "pck"
+    root.mkdir()
+    for i in range(2):
+        with open(root / f"vol{i}.pck", "wb") as f:
+            pickle.dump({"data": synthetic.synthetic_knee_volume(
+                i, 20, 160, 128)}, f)
+    spec = dict(root_dir=str(root), height=64, width=64,
+                slice_keep="0.3,0.7", clip="1.0,99.5", use_n4=False,
+                use_denoise=False, preview_max=0)
+    before = (morphology.LAUNCHES, components.LAUNCHES["label_components"])
+    out = build_preprocess(SimpleNamespace(
+        out_dir=str(tmp_path / "card"), device=str(card), **spec),
+        KneePckAdapter())
+    assert (morphology.LAUNCHES - before[0],
+            components.LAUNCHES["label_components"] - before[1]) == (2, 2)
+    build_preprocess(SimpleNamespace(out_dir=str(tmp_path / "cpu"),
+                                     device="cpu", **spec), KneePckAdapter())
+    for e in out:
+        name = pathlib.Path(e["output_dir"]).name
+        with np.load(e["npz_path"]) as a, \
+                np.load(tmp_path / "cpu" / name / "volume.npz") as b:
+            assert (a["msk"] != b["msk"]).mean() <= 1e-3
+            same = (a["msk"] == b["msk"]).reshape(len(a["msk"]), -1).all(1)
+            assert same.any()
+            assert np.abs(a["img"][same] - b["img"][same]).max() <= 1e-4

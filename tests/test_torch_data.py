@@ -11,6 +11,7 @@ pack's tensor within 3.5e-6 with masks bit-equal.
 """
 import json
 import random
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -342,7 +343,15 @@ def test_launcher_has_the_jax_flags_and_defaults():
     assert ns.batch_size == 128 and ns.lr == 2e-3
 
 
-def test_launcher_preprocess_stage_names_the_missing_adapters(capsys):
+def test_launcher_preprocess_stage_names_the_missing_adapters(
+        capsys, monkeypatch, tmp_path):
+    """The preprocess stage runs now; what it can lack is named: the
+    dataset root, or h5py, which the .h5 adapter needs."""
+    monkeypatch.delenv("FASTMRI_ROOT", raising=False)
     with pytest.raises(SystemExit):
-        launcher.main(["--dataset-root", "/nonexistent", "--device", "cpu"])
-    assert ".h5 adapters" in capsys.readouterr().err
+        launcher.main(["--device", "cpu"])
+    assert "--dataset-root" in capsys.readouterr().err
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        launcher.main(["--dataset-root", str(tmp_path), "--device", "cpu",
+                       "--artifact-dir", str(tmp_path / "art")])
