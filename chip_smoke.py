@@ -107,7 +107,26 @@ Phases, each printing one JSON line with its seconds:
      through the slice store's native npz loader, bit-equal to
      ``np.load``; the ``.h5`` route's refusal without h5py (its message
      checked), or a fixture read where h5py is installed. The recon
-     launches no mask kernel.
+     launches no mask kernel;
+ 13  VarNet and the recon U-Net, from torch's own precision flags: the
+     VarNetArgs defaults (12 cascades, chans 18, b50: 12 coils, 3 averages,
+     320x320, maps with one average, seeded random weights) forward in f32
+     card vs CPU (TF32 off; gated by the CPU's own f32 distance from
+     float64) and in float64; ms a bf16 training step and peak memory at
+     the protocol configuration (10 cascades, chans 20, 12 coils, one
+     average) and at the defaults, batch 1 and 2, one protocol step traced
+     (busy share, top kernels); ``tools/varnet_synthetic.py``'s protocol
+     recipe cut to 2 epochs (train loss and val NMSE / SSIM / PSNR by
+     epoch); one f32 SSIM-loss step card vs CPU from that run's weights,
+     the loss and every gradient against a one-ulp floor (at full width
+     when the CPU's two steps stay under 20 s, else 4 cascades); a
+     ``--task recon`` daemon on that run's checkpoint answering a 5-D and a
+     batched 6-D ``/v1/reconstruct``, and one on a b50 checkpoint answering
+     with one-average maps, each equal to the in-process runner, with
+     ``/metricsz`` and no mask kernel launched; the recon U-Net at full
+     width (chans 32, 4 pools, 320x320): one f32 step card vs CPU and ms a
+     bf16 step; ``cli.train_varnet`` and ``cli.evaluate`` refusing without
+     h5py (the message checked).
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -120,6 +139,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import dataclasses
 import faulthandler
 import io
 import json
@@ -140,7 +160,7 @@ import torch
 import torch.nn.functional as F
 
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli import (
-    infer, launcher, quantize, serve)
+    evaluate as evaluate_cli, infer, launcher, quantize, serve, train_varnet)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
     load_model_from_ckpt, model_apply_fn)
 from mri_acl_imagesegmentation_adsp_tpu_torch import native
@@ -179,12 +199,19 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
     dwi_reconstruction, t2_reconstruction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
-    corpus_run, probe_label_prop, probe_recon)
+    corpus_run, probe_label_prop, probe_recon, varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
     augment_batch)
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.fastmri_unet import (
+    FastMRIUnet, init_fastmri_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import trainer3d
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.unet_recon_trainer import (
+    UnetReconArgs, UnetReconTrainer, unet_transform)
+from mri_acl_imagesegmentation_adsp_tpu_torch.recon.varnet import VarNet
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.varnet_trainer import (
+    VarNetArgs, VarNetTrainer, build_varnet_from_args, varnet_loss)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
     load_best, save_best)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.engine import Engine
@@ -193,7 +220,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.optim import (
     make_optimizer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.cuda_timing import (
-    cuda_ms, host_us, kernel_trace)
+    back_to_back_ms, cuda_ms, host_us, kernel_trace)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.device import (
     f32_on_card)
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
@@ -269,6 +296,24 @@ RECON_PIXELS_PAST = 1e-3   # ... or, for the thresholded DWI maps, at most
 DWI_THRESHOLDED = ("adc_map", "b1500")  # this share of pixels past
 PCK_VOLUMES = 4            # pickled magnitude volumes through the ingest
 PCK_VOLUME = (35, 640, 368)
+VARNET_AVES = 3            # b50, the VarNetArgs defaults' b-value
+VARNET_SEED = 13
+VARNET_FWD_RTOL = 1e-4     # f32 forward card vs CPU, times max |CPU|,
+VARNET_FWD_FLOOR_X = 10.0  # or this many times the CPU's f32-f64 distance
+VARNET_F64_RTOL = 1e-9     # float64 forward card vs CPU, times max |CPU|
+VARNET_STEP_CPU_S = 20.0   # the step check runs at full width when the
+                           # CPU's two steps stay under this
+VARNET_NARROW_CASCADES = 4
+VARNET_F64_CASCADES = 2    # the float64 step: the CPU's float64 cascade
+                           # costs some 5x its f32 one (phase 13's time)
+VARNET_LOSS_RTOL = 1e-4    # f32 step card vs CPU: the loss, relative, and
+VARNET_GRAD_RTOL = 1e-3    # each gradient, times its max |g|; or
+                           # STEP_GRAD_FLOOR_X times the one-ulp floor
+VARNET_TIMING = ("protocol", "defaults")
+VARNET_BATCHES = (1, 2)
+VARNET_WARMUP, VARNET_TIMED = 3, 10
+VARNET_SMOKE_EPOCHS = 2    # of the protocol recipe's 13
+UNET_RECON_BATCH = 2       # 320x320 slices a recon U-Net step
 
 
 def emit(obj: dict) -> None:
@@ -2256,15 +2301,10 @@ def time_3d_step(dev: torch.device, remat: bool) -> dict:
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(TIMED_STEPS_3D):
-        loss = step()
-    end.record()
-    torch.cuda.synchronize()
-    out = {"remat": remat, "ms_per_step": start.elapsed_time(end)
-           / TIMED_STEPS_3D, "peak_gib": torch.cuda.max_memory_allocated()
-           / 2 ** 30, "loss": float(loss.detach())}
+    ms, loss = back_to_back_ms(step, TIMED_STEPS_3D)
+    out = {"remat": remat, "ms_per_step": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss": float(loss.detach())}
     del model, opt, x, y
     torch.cuda.empty_cache()
     if not np.isfinite(out["loss"]):
@@ -2624,6 +2664,421 @@ def phase_recon_ingest(dev: torch.device, defaults: dict, tmp: str,
             "ingest_pck": out["ingest_pck"]["launches"]}
 
 
+def _b50_samples(samples: list) -> list:
+    """b50-shaped samples (three averages, maps with one) made of three
+    protocol slices each: k-space ``(12, 3, 320, 320, 2)``."""
+    return [samples[i]._replace(kspace=np.concatenate(
+        [t.kspace for t in samples[i:i + VARNET_AVES]], axis=1))
+        for i in range(0, len(samples) - VARNET_AVES + 1, VARNET_AVES)]
+
+
+def _as_tensors(sample, dev: torch.device) -> tuple:
+    """A sample's k-space, maps, target and max value, batched, on
+    ``dev``."""
+    return (torch.from_numpy(sample.kspace[None]).to(dev),
+            torch.from_numpy(sample.espirit[None]).to(dev),
+            torch.from_numpy(sample.target[None]).to(dev),
+            torch.tensor([sample.max_value], dtype=torch.float32).to(dev))
+
+
+def _varnet_in(args: VarNetArgs, aves: int, state: dict,
+               dtype: torch.dtype) -> torch.nn.Module:
+    """The VarNet of ``args`` with the weights ``state``, computing in
+    ``dtype`` (float64 for a reference run)."""
+    ref = VarNet(aves, 1, args.num_cascades, args.sens_chans,
+                 args.sens_pools, args.chans, args.pools, dtype=dtype)
+    ref.load_state_dict(state)
+    return ref.to(dtype)
+
+
+def _varnet(args: VarNetArgs, aves: int,
+            dtype: torch.dtype | None = None) -> torch.nn.Module:
+    """The VarNet of ``args`` with VARNET_SEED's weights, in ``dtype``
+    (default the args' own; float64 for a reference run)."""
+    model = init_fastmri_weights(
+        build_varnet_from_args(args, aves=aves, sens_aves=1),
+        torch.Generator().manual_seed(VARNET_SEED))
+    if dtype is None:
+        return model
+    return _varnet_in(args, aves, model.state_dict(), dtype)
+
+
+def _ulp_moved(x: torch.Tensor) -> torch.Tensor:
+    """Every non-zero element of ``x`` moved by one f32 ulp, up or down at
+    random (seeded); zeros stay: they are the sampling mask."""
+    up = torch.rand(x.shape, generator=torch.Generator().manual_seed(0)) < 0.5
+    moved = torch.nextafter(x, torch.where(up, torch.inf, -torch.inf))
+    return torch.where(x != 0, moved, x)
+
+
+def varnet_forward_card_vs_cpu(dev: torch.device, sample) -> tuple:
+    """The VarNetArgs defaults (12 cascades, chans 18, b50) on one 12-coil
+    320x320 slice in f32, card (TF32 off) vs CPU, and in float64 both
+    sides. From a random init the network amplifies rounding: its f32
+    output lies some 1e-3 of its maximum from float64, on the CPU too. So
+    f32 card vs CPU is held to VARNET_FWD_FLOOR_X times the CPU's own f32
+    distance from float64 on this input (or VARNET_FWD_RTOL, when larger),
+    and float64 card vs CPU to VARNET_F64_RTOL. Returns the result and the
+    f32 model."""
+    args = VarNetArgs(amp=False)
+    model = _varnet(args, VARNET_AVES).eval()
+    k, e, _, _ = _as_tensors(sample, torch.device("cpu"))
+    out = {}
+    for name, m, d, dt in (
+            ("cpu", model, torch.device("cpu"), torch.float32),
+            ("cpu64", _varnet(args, VARNET_AVES, torch.float64),
+             torch.device("cpu"), torch.float64),
+            ("card", model, dev, torch.float32),
+            ("card64", _varnet(args, VARNET_AVES, torch.float64), dev,
+             torch.float64)):
+        m = copy.deepcopy(m).to(d).eval()
+        t0 = time.perf_counter()
+        with torch.no_grad(), f32_on_card(d):
+            out[name] = m(k.to(d, dt), e.to(d, dt)).cpu().double()
+        out[name + "_s"] = time.perf_counter() - t0
+        del m
+    torch.cuda.empty_cache()
+    mx = float(out["cpu64"].abs().max())
+
+    def rel(a, b):
+        return float((out[a] - out[b]).abs().max()) / mx
+    floor = rel("cpu", "cpu64")
+    res = {"shape": list(k.shape), "out": list(out["cpu"].shape),
+           "rel_err_to_max": rel("card", "cpu"),
+           "cpu_f32_vs_f64": floor, "card_f32_vs_f64": rel("card", "cpu64"),
+           "tolerance": max(VARNET_FWD_RTOL, VARNET_FWD_FLOOR_X * floor),
+           "f64_rel_err_to_max": rel("card64", "cpu64"),
+           "f64_tolerance": VARNET_F64_RTOL,
+           "cpu_forward_s": out["cpu_s"], "cpu64_forward_s": out["cpu64_s"],
+           "finite": bool(torch.isfinite(out["card"]).all())}
+    if (res["rel_err_to_max"] > res["tolerance"] or not res["finite"]
+            or res["f64_rel_err_to_max"] > VARNET_F64_RTOL):
+        raise AssertionError(f"VarNet forward card vs CPU: {res}")
+    return res, model
+
+
+def _varnet_grads(model: torch.nn.Module, sample, d: torch.device,
+                  kspace: torch.Tensor | None = None,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """One SSIM-loss step's loss and gradients (by parameter name) from
+    ``model``'s weights on ``d`` (TF32 off), the inputs in ``dtype`` (the
+    model's own: f32, or float64 for a reference run)."""
+    m = copy.deepcopy(model).to(d).train()
+    k, e, t, mv = (x.to(dtype) for x in _as_tensors(sample, d))
+    if kspace is not None:
+        k = kspace.to(d, dtype)
+    t0 = time.perf_counter()
+    with f32_on_card(d):
+        loss = varnet_loss(m, k, e, t, mv, crop=100)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+    names = [n for n, _ in m.named_parameters()]
+    return {"loss": float(loss.detach()), "s": time.perf_counter() - t0,
+            "grads": {n: g.cpu() for n, g in zip(names, grads)}}
+
+
+def _step_rule(card: dict, cpu: dict, moved: dict) -> dict:
+    """Card vs CPU of one step: the loss relative, and each gradient
+    tensor's max difference relative to its max |g|, against the same of
+    the CPU step from a one-ulp-moved input (the floor), phase 6's rule."""
+    grad_rel = _rel_to_max(card["grads"], cpu["grads"])
+    floor_rel = _rel_to_max(moved["grads"], cpu["grads"])
+    floor = max(floor_rel.values())
+    loss_floor = abs(moved["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {"loss": cpu["loss"],
+           "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "loss_rel_one_ulp": loss_floor,
+           "loss_tol": max(VARNET_LOSS_RTOL, STEP_GRAD_FLOOR_X * loss_floor),
+           "grad_worst_rel_to_max": grad_rel[worst],
+           "grad_worst_tensor": worst,
+           "grad_median_rel_to_max": float(np.median(list(
+               grad_rel.values()))),
+           "grad_tensors": len(grad_rel),
+           "grad_floor_one_ulp": floor,
+           "grad_tol": max(VARNET_GRAD_RTOL, STEP_GRAD_FLOOR_X * floor),
+           "cpu_step_s": cpu["s"]}
+    if (out["loss_rel_err"] > out["loss_tol"]
+            or out["grad_worst_rel_to_max"] > out["grad_tol"]):
+        raise AssertionError(f"step card vs CPU: {out}")
+    return out
+
+
+def _f64_rule(card: dict, cpu: dict) -> dict:
+    """Card vs CPU of one float64 step, where rounding cannot show: the
+    loss relative and each gradient tensor's max difference relative to
+    its max |g|, both held to STEP_GRAD_F64_RTOL (phase 6's rule)."""
+    grad_rel = _rel_to_max(card["grads"], cpu["grads"])
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {"f64_loss_rel_err": abs(card["loss"] - cpu["loss"])
+           / abs(cpu["loss"]),
+           "f64_grad_worst_rel_to_max": grad_rel[worst],
+           "f64_grad_worst_tensor": worst,
+           "f64_grad_median_rel_to_max": float(np.median(list(
+               grad_rel.values()))),
+           "f64_grad_tensors": len(grad_rel),
+           "f64_tol": STEP_GRAD_F64_RTOL, "f64_cpu_step_s": cpu["s"]}
+    if (out["f64_loss_rel_err"] > STEP_GRAD_F64_RTOL
+            or out["f64_grad_worst_rel_to_max"] > STEP_GRAD_F64_RTOL):
+        raise AssertionError(f"float64 step card vs CPU: {out}")
+    return out
+
+
+def varnet_step_card_vs_cpu(dev: torch.device, ckpt: str, sample) -> dict:
+    """One f32 SSIM-loss step, card (TF32 off) vs CPU, from the weights of
+    the protocol recipe's short run (``ckpt``, loaded into the f32 protocol
+    configuration) on a validation slice: the loss and every gradient under
+    :func:`_step_rule`. Trained weights, because from a random init the
+    full-width gradients are rounding noise: a one-ulp move of the input
+    moves some tensor's gradient by its whole size, on the CPU alone. At
+    full width when the CPU's two steps (the plain and the one-ulp one) stay
+    under VARNET_STEP_CPU_S, else at VARNET_NARROW_CASCADES cascades. The
+    same step in float64 on both sides, at VARNET_F64_CASCADES cascades (the
+    second one's ``dc_weight`` has a gradient; the first's soft-DC term is
+    zero), under :func:`_f64_rule`."""
+    with open(ckpt + ".args.json", encoding="utf-8") as f:
+        args = VarNetArgs(**{**json.load(f), "amp": False})
+    state = load_best(ckpt)
+    model = build_varnet_from_args(args, aves=1)
+    model.load_state_dict(state)
+    cpu_dev = torch.device("cpu")
+    k = torch.from_numpy(sample.kspace[None])
+    cpu = _varnet_grads(model, sample, cpu_dev)
+    full = 2 * cpu["s"] < VARNET_STEP_CPU_S
+    if not full:
+        model.cascades = model.cascades[:VARNET_NARROW_CASCADES]
+        cpu = _varnet_grads(model, sample, cpu_dev)
+    moved = _varnet_grads(model, sample, cpu_dev, _ulp_moved(k))
+    card = _varnet_grads(model, sample, dev)
+    ref = _varnet_in(args, 1, state, torch.float64)
+    ref.cascades = ref.cascades[:VARNET_F64_CASCADES]
+    f64 = _f64_rule(*(_varnet_grads(ref, sample, d, dtype=torch.float64)
+                      for d in (dev, cpu_dev)))
+    return {"weights": "protocol run, 2 epochs", "cascades":
+            len(model.cascades), "full_width": full,
+            **_step_rule(card, cpu, moved),
+            "f64_cascades": len(ref.cascades), **f64}
+
+
+def varnet_step_time(dev: torch.device, trainer: VarNetTrainer,
+                     samples: list, batch: int, trace: bool = False) -> dict:
+    """ms a bf16 training step (upload, forward, SSIM loss, backward,
+    AdamW) through ``VarNetTrainer._step_batch`` and the peak memory, by
+    CUDA events over VARNET_TIMED steps after VARNET_WARMUP; with
+    ``trace`` one more step under ``torch.profiler``: the card's busy
+    share and its costliest kernels."""
+    chunk = samples[:batch]
+    for _ in range(VARNET_WARMUP):
+        trainer._step_batch(chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, loss = back_to_back_ms(lambda: trainer._step_batch(chunk),
+                               VARNET_TIMED)
+    out = {"batch": batch, "ms_per_step": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss": float(loss)}
+    if trace:
+        out["trace"] = probe_recon.card_busy(
+            lambda: trainer._step_batch(chunk))
+    if not np.isfinite(out["loss"]):
+        raise AssertionError(f"VarNet step: {out}")
+    return out
+
+
+def varnet_serving(dev: torch.device, ckpt: str, proto: list,
+                   b50_model: torch.nn.Module, b50: list, tmp: str) -> dict:
+    """``--task recon`` daemons: the protocol run's checkpoint answers a
+    5-D and a batched 6-D request, a b50 checkpoint (random f32 weights,
+    three averages) one whose maps have one average; each reply equal to
+    the in-process runner's result, and no mask kernel launched."""
+    reset_mask_launches()
+    out = {}
+    server, thread, url = _start_server(ckpt, dev, task="recon")
+    runner = server.RequestHandlerClass.runner
+    reqs = {"5d": (proto[0].kspace, proto[0].espirit),
+            "6d_batch2": (np.stack([s.kspace for s in proto[1:3]]),
+                          np.stack([s.espirit for s in proto[1:3]]))}
+    got = {n: _post(url + "/v1/reconstruct", _npz_bytes(
+        kspace=k, espirit=e))["recon"] for n, (k, e) in reqs.items()}
+    out["metricsz"] = {k: v for k, v in _metricsz(url).items()
+                       if k in ("serve_requests_total", "serve_slices_total")}
+    for n, (k, e) in reqs.items():
+        want = runner.reconstruct(k, e)["recon"]
+        if got[n].shape != want.shape or not np.array_equal(got[n], want):
+            raise AssertionError(f"/v1/reconstruct {n} differs from "
+                                 "in-process: max "
+                                 f"{np.abs(got[n] - want).max()}")
+        out[n] = {"shape": list(got[n].shape),
+                  "finite": bool(np.isfinite(got[n]).all())}
+    _stop_server(server, thread)
+    if out["metricsz"] != {"serve_requests_total": 2.0,
+                           "serve_slices_total": 3.0}:
+        raise AssertionError(f"/metricsz after 3 slices in 2 requests: "
+                             f"{out['metricsz']}")
+    b50_ckpt = os.path.join(tmp, "varnet_b50", "varnet_best.ckpt")
+    os.makedirs(os.path.dirname(b50_ckpt))
+    save_best(b50_ckpt, b50_model.state_dict(),
+              dataclasses.asdict(VarNetArgs(amp=False)))
+    server, thread, url = _start_server(b50_ckpt, dev, task="recon")
+    k, e = b50[0].kspace, b50[0].espirit
+    got = _post(url + "/v1/reconstruct", _npz_bytes(kspace=k,
+                                                    espirit=e))["recon"]
+    want = server.RequestHandlerClass.runner.reconstruct(k, e)["recon"]
+    _stop_server(server, thread)
+    if not np.array_equal(got, want):
+        raise AssertionError("/v1/reconstruct b50 with one-average maps "
+                             "differs from in-process")
+    out["b50_singleton_maps"] = {"kspace": list(k.shape),
+                                 "espirit": list(e.shape),
+                                 "recon": list(got.shape)}
+    out["launches"] = mask_launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"the recon daemon launched mask kernels: "
+                             f"{out['launches']}")
+    return out
+
+
+def _unet_grads(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
+                d: torch.device) -> dict:
+    """One f32 L1 step's loss and gradients from ``model``'s weights on
+    ``d`` (TF32 off)."""
+    m = copy.deepcopy(model).to(d).train()
+    t0 = time.perf_counter()
+    with f32_on_card(d):
+        loss = torch.mean(torch.abs(m(x.to(d)) - y.to(d)))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+    names = [n for n, _ in m.named_parameters()]
+    return {"loss": float(loss.detach()), "s": time.perf_counter() - t0,
+            "grads": {n: g.cpu() for n, g in zip(names, grads)}}
+
+
+def unet_recon_full_width(dev: torch.device, proto: list, zero_filled: list,
+                          tmp: str) -> dict:
+    """``UnetReconTrainer`` at full width (chans 32, 4 pools) on 320x320
+    zero-filled / target pairs: one f32 step card vs CPU (TF32 off; the
+    loss and every gradient under :func:`_step_rule`; in float64 under
+    :func:`_f64_rule`), and ms a bf16 step."""
+    samples = [unet_transform(zf, s.target, s.fname, 0, s.max_value)
+               for s, zf in zip(proto, zero_filled)]
+    out = {}
+    tr = UnetReconTrainer(UnetReconArgs(out_dir=os.path.join(
+        tmp, "unet_recon"), amp=False), samples, samples,
+        device=torch.device("cpu"))
+    x, y = next(tr._batches(samples[:UNET_RECON_BATCH], False))
+    cpu = _unet_grads(tr.model, x, y, torch.device("cpu"))
+    moved = _unet_grads(tr.model, _ulp_moved(x), y, torch.device("cpu"))
+    card = _unet_grads(tr.model, x, y, dev)
+    a = tr.args
+    ref = FastMRIUnet(a.in_chans, a.out_chans, a.chans, a.num_pool_layers,
+                      a.drop_prob, torch.float64)
+    ref.load_state_dict(tr.model.state_dict())
+    ref = ref.to(torch.float64)
+    f64 = _f64_rule(*(_unet_grads(ref, x.double(), y.double(), d)
+                      for d in (dev, torch.device("cpu"))))
+    out["step_f32"] = {"batch": UNET_RECON_BATCH,
+                       **_step_rule(card, cpu, moved), **f64}
+    tr = UnetReconTrainer(UnetReconArgs(out_dir=os.path.join(
+        tmp, "unet_recon"), amp=True), samples, samples, device=dev)
+    x, y = next(tr._batches(samples[:UNET_RECON_BATCH], False))
+    for _ in range(VARNET_WARMUP):
+        tr.step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, loss = back_to_back_ms(lambda: tr.step(x, y), VARNET_TIMED)
+    out["step_bf16"] = {"batch": UNET_RECON_BATCH, "ms_per_step": ms,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30, "loss": float(loss)}
+    return out
+
+
+def recon_h5_clis(tmp: str) -> dict:
+    """Without h5py, ``cli.train_varnet`` and ``cli.evaluate`` raise an
+    ImportError naming it; where h5py is installed they run on a written
+    DWI fixture instead."""
+    root = os.path.join(tmp, "dwi")
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(root, split))
+    calls = {
+        "train_varnet": lambda: train_varnet.main([
+            "--data-path", root, "--out-dir", os.path.join(tmp, "vn_h5"),
+            "--epochs", "1", "--num-cascades", "1", "--chans", "4",
+            "--pools", "2", "--sens-chans", "4", "--sens-pools", "2"]),
+        "evaluate": lambda: evaluate_cli.main([
+            "--target-path", os.path.join(root, "train"),
+            "--predictions-path", os.path.join(tmp, "vn_h5")])}
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        messages = {}
+        for name, call in calls.items():
+            try:
+                call()
+            except ImportError as exc:
+                messages[name] = str(exc)
+            else:
+                raise AssertionError(f"{name} served without h5py")
+        if not all("h5py" in m for m in messages.values()):
+            raise AssertionError(f"refusals that do not name h5py: "
+                                 f"{messages}")
+        return {"h5py": False, "refusals": messages}
+    for split, seed in (("train", 0), ("val", 1)):
+        varnet_synthetic.write_dwi_h5(
+            os.path.join(root, split, "case.h5"), seed)
+    rc = calls["train_varnet"]()
+    return {"h5py": True, "train_varnet_rc": rc}
+
+
+def phase_varnet(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """Phase 13 from torch's own precision flags: VarNet and the recon
+    U-Net. Returns the mask kernels' launches on these paths (none)."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    reset_mask_launches()
+    proto, proto_zf = varnet_synthetic.make_samples("protocol", "train")
+    b50 = _b50_samples(proto)
+    out = {}
+    out["forward"], b50_model = varnet_forward_card_vs_cpu(dev, b50[0])
+    configs = {"protocol": (VarNetArgs(
+        out_dir=os.path.join(tmp, "vn_time"),
+        **varnet_synthetic.RECIPES["protocol"]["args"]), proto),
+        "defaults": (VarNetArgs(out_dir=os.path.join(tmp, "vn_time")), b50)}
+    out["step_time"] = {}
+    for name in VARNET_TIMING:
+        args, samples = configs[name]
+        trainer = VarNetTrainer(args, device=dev)
+        out["step_time"][name] = [
+            varnet_step_time(dev, trainer, samples, b,
+                             trace=(name == "protocol" and b == 1))
+            for b in VARNET_BATCHES]
+        del trainer
+        torch.cuda.empty_cache()
+    run = varnet_synthetic.run("protocol", str(dev), os.path.join(
+        tmp, "varnet_protocol"), epochs=VARNET_SMOKE_EPOCHS)
+    with open(os.path.join(tmp, "varnet_protocol", "history.json"),
+              encoding="utf-8") as f:
+        history = json.load(f)
+    out["train_protocol"] = {
+        "by_epoch": [{k: h[k] for k in ("epoch", "train_loss", "nmse",
+                                        "ssim", "psnr", "seconds")}
+                     for h in history],
+        "baseline_zero_filled": run["baseline_zero_filled"]}
+    ckpt = os.path.join(tmp, "varnet_protocol", "varnet_best.ckpt")
+    proto_val = varnet_synthetic.make_samples("protocol", "val")[0]
+    out["step_f32"] = varnet_step_card_vs_cpu(dev, ckpt, proto_val[0])
+    out["serve"] = varnet_serving(dev, ckpt, proto_val, b50_model, b50, tmp)
+    out["unet_recon"] = unet_recon_full_width(dev, proto[:4], proto_zf[:4],
+                                              tmp)
+    out["h5_clis"] = recon_h5_clis(tmp)
+    launches = mask_launches()
+    if any(launches.values()):
+        raise AssertionError(f"phase 13 launched mask kernels: {launches}")
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 13 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
+    emit({"phase": "varnet", "seconds": time.perf_counter() - t0,
+          "launches": launches, **out})
+    return {"varnet": launches}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2657,6 +3112,7 @@ def main() -> int:
         by_path["corpus"] = corpus["launches"]
         by_path["patch3d"] = phase_3d(dev, defaults, tmp, corpus["lists"])
         by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
+        by_path.update(phase_varnet(dev, defaults, tmp))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

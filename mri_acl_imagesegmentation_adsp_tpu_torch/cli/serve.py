@@ -1,9 +1,10 @@
-"""Segmentation serving daemon over HTTP.
+"""Segmentation and reconstruction serving daemon over HTTP.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/cli/serve.py``:
-``_MicroBatcher`` (:83-165), ``_ModelRunner`` (:168-311), ``_Handler``
-(:520-660), ``create_server`` and ``main``. The process loads a checkpoint
-once and answers whole-volume requests on one device:
+``_MicroBatcher`` (:83-165), ``_ModelRunner`` (:168-311), ``_ReconRunner``
+(:315-384), ``_Handler`` (:520-660), ``create_server`` and ``main``. The
+process loads a checkpoint once and answers whole-volume requests on one
+device:
 
   GET  /healthz            -> JSON {status, task, k, classes, source,
                                     requests}
@@ -22,6 +23,11 @@ once and answers whole-volume requests on one device:
                            keep band, default 0,1 = every slice)
                            -> .npz {mask, body_mask uint8, indices int64
                                     [, probs]}
+  POST /v1/reconstruct     (--task recon; --ckpt is a varnet_best.ckpt)
+                           body: .npz {kspace, espirit} float32 real pairs
+                           (coils, aves, h, w, 2), or batched with a
+                           leading slice axis; espirit may have one average
+                           -> .npz {recon float32 (h, w) or (b, h, w)}
 
 ``--tta hflip`` serves the mean probability over the horizontal-flip orbit
 (``infer/segment.py:tta_wrap``). ``--microbatch-window-ms`` coalesces
@@ -35,9 +41,14 @@ The model runs in its checkpoint's compute dtype: bf16 autocast for an
 with TF32 off otherwise (``cli/infer.py:model_apply_fn``). ``--qtree``
 serves a ``cli.quantize`` artifact (int8 or folded, in the artifact's
 compute dtype) through the same runner, micro-batcher and TTA, with
-``source: "qtree"`` in ``/healthz``. Not ported (``main`` has no flag for
-them): the recon and classify tasks (``--task``); ``--data-parallel`` above
-1 raises.
+``source: "qtree"`` in ``/healthz``. ``--task recon`` serves VarNet: the
+model is built by ``train/varnet_trainer.py:build_varnet_from_args`` from
+``varnet_best.ckpt.args.json``, its averages read off the checkpoint's
+weights, and loaded at start (a state_dict needs no input to shape it); it
+runs in the checkpoint's dtype (bf16 under ``amp``) and counts requests and
+slices (a batched request's slices) in ``/metricsz``. Refused: ``--task
+classify`` (ROADMAP.md Queue 1 item 6) and ``--data-parallel`` above 1
+(item 7).
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
@@ -45,6 +56,8 @@ Usage:
       [--warmup-shape 8,320,320] [--tta hflip] [--microbatch-window-ms 5]
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
       --qtree quant_int8.npz --port 8080 [--device cuda]
+  python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
+      --task recon --ckpt varnet_best.ckpt --port 8080 [--device cuda]
 """
 
 from __future__ import annotations
@@ -66,6 +79,9 @@ from ..data.preprocess import MRIKneePreprocessor
 from ..infer.segment import (segment_volume_2d, segment_volumes_2d,
                              threshold_probs, tta_wrap)
 from ..ops.kernels import morphology
+from ..recon.varnet import varnet_layout
+from ..train.checkpoint import load_best
+from ..train.varnet_trainer import build_varnet_from_args, combine_directions
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
 from .infer import load_model_from_ckpt, model_apply_fn
@@ -286,13 +302,78 @@ class _ModelRunner:
             self.seconds = self.last_latency_s = 0.0
 
 
-def _build_runner(args) -> _ModelRunner:
-    """The runner of ``--qtree`` when given, else of ``--ckpt``."""
+class _ReconRunner:
+    """VarNet reconstruction serving (``POST /v1/reconstruct``) from a
+    ``varnet_best.ckpt`` and its ``.args.json``; serializes the device."""
+
+    task = "recon"
+    k = classes = None
+
+    def __init__(self, ckpt_path: str, device: str | torch.device = "cuda"):
+        with open(ckpt_path + ".args.json", "r", encoding="utf-8") as f:
+            margs = json.load(f)
+        self.device = resolve_device(device)
+        sd = load_best(ckpt_path)
+        aves, sens_aves = varnet_layout(sd)
+        # the trainer's own construction path
+        model = build_varnet_from_args(margs, aves=aves, sens_aves=sens_aves)
+        model.load_state_dict(sd)
+        self.model = model.to(self.device).eval()
+        self.compute_dtype = model.dtype
+        self.source = "ckpt"
+        self.requests = 0
+        self.slices = 0
+        self.errors = 0
+        self.seconds = 0.0
+        self.last_latency_s = 0.0
+        self._lock = threading.Lock()
+        self.stats_lock = threading.Lock()
+        self._on_close = contextlib.ExitStack()
+
+    count_error = _ModelRunner.count_error
+    _record = _ModelRunner._record
+
+    def close(self) -> None:
+        self._on_close.close()
+
+    def reconstruct(self, kspace: np.ndarray, espirit: np.ndarray) -> dict:
+        """``|image|`` combined over directions: ``(h, w)`` for a 5-D
+        request, ``(b, h, w)`` for a batched 6-D one."""
+        for name, arr in (("kspace", kspace), ("espirit", espirit)):
+            if arr.ndim not in (5, 6) or arr.shape[-1] != 2:
+                raise ValueError(
+                    f"{name} must be (coils,aves,h,w,2) real-pair "
+                    f"(optionally with a leading batch dim), got "
+                    f"shape {arr.shape}")
+        k = torch.from_numpy(np.ascontiguousarray(
+            kspace[None] if kspace.ndim == 5 else kspace, np.float32))
+        e = torch.from_numpy(np.ascontiguousarray(
+            espirit[None] if espirit.ndim == 5 else espirit, np.float32))
+        with self._lock:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = combine_directions(self.model(k.to(self.device),
+                                                    e.to(self.device)))
+            out = out.float().cpu().numpy()
+            # a batched request's slices count one each, as the segment
+            # task counts them
+            self._record(t0, int(k.shape[0]))
+        return {"recon": out[0] if kspace.ndim == 5 else out}
+
+
+def _build_runner(args):
+    """The recon runner under ``--task recon``; else the segmentation
+    runner of ``--qtree`` when given, else of ``--ckpt``."""
     device = resolve_device(getattr(args, "device", "cuda"))
     if int(getattr(args, "data_parallel", 1) or 1) != 1:
         raise ValueError(f"--data-parallel {args.data_parallel}: multi-"
                          "device serving is not ported (ROADMAP.md Queue 1 "
-                         "item 14)")
+                         "item 7)")
+    if getattr(args, "task", "segment") == "recon":
+        if not getattr(args, "ckpt", None):
+            raise ValueError("--task recon requires --ckpt "
+                             "(a varnet_best.ckpt)")
+        return _ReconRunner(args.ckpt, device)
     if getattr(args, "qtree", None):
         from .quantize import load_engine
         eng, qtree, meta = load_engine(args.qtree, device)
@@ -364,8 +445,11 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         url = urlparse(self.path)
-        if url.path not in ("/v1/segment", "/v1/segment_kspace"):
-            return self._json(404, {"error": "unknown path"})
+        paths = (("/v1/reconstruct",) if self.runner.task == "recon"
+                 else ("/v1/segment", "/v1/segment_kspace"))
+        if url.path not in paths:
+            return self._json(404, {"error": "unknown path for task "
+                                             f"{self.runner.task!r}"})
         try:
             n = int(self.headers.get("Content-Length", 0))
             q = parse_qs(url.query)
@@ -373,7 +457,13 @@ class _Handler(BaseHTTPRequestHandler):
             want_probs = q.get("probs", ["0"])[0] in ("1", "true")
             with np.load(io.BytesIO(self.rfile.read(n)),
                          allow_pickle=False) as z:
-                if url.path == "/v1/segment_kspace":
+                if url.path == "/v1/reconstruct":
+                    for key in ("kspace", "espirit"):
+                        if key not in z:
+                            raise ValueError("npz body must contain arrays "
+                                             "'kspace' and 'espirit'")
+                    out = self.runner.reconstruct(z["kspace"], z["espirit"])
+                elif url.path == "/v1/segment_kspace":
                     if "kspace" not in z:
                         raise ValueError(
                             "npz body must contain array 'kspace'")
@@ -416,9 +506,9 @@ def create_server(args) -> ThreadingHTTPServer:
     artifact computes in bf16 all the same."""
     runner = _build_runner(args)
     runner._on_close.enter_context(f32_on_card(runner.device))
-    if runner.device.type == "cuda":
+    if runner.task == "segment" and runner.device.type == "cuda":
         morphology.load_library()    # build before the first request
-    if getattr(args, "warmup_shape", ""):
+    if getattr(args, "warmup_shape", "") and runner.task == "segment":
         runner.warmup(tuple(int(v) for v in args.warmup_shape.split(",")))
     handler = type("BoundHandler", (_Handler,), {"runner": runner})
     server = ThreadingHTTPServer((args.host, args.port), handler)
@@ -443,12 +533,18 @@ def install_drain_handler(server) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        "Segmentation serving daemon (PyTorch)",
-        epilog="Not ported, so refused as unrecognized arguments: the JAX "
-               "daemon's --task (the recon and classify runners).")
+        "Segmentation / reconstruction serving daemon (PyTorch)")
+    p.add_argument("--task", choices=("segment", "recon", "classify"),
+                   default="segment",
+                   help="segment = 2-D U-Net family (POST /v1/segment, "
+                        "/v1/segment_kspace); recon = VarNet (POST "
+                        "/v1/reconstruct with {kspace, espirit} real-pair "
+                        "arrays, --ckpt is a varnet_best.ckpt); classify is "
+                        "not ported (ROADMAP.md Queue 1 item 6)")
     p.add_argument("--ckpt",
                    help="best checkpoint (train/checkpoint.py format) with "
-                        "its .args.json beside it")
+                        "its .args.json beside it; a varnet_best.ckpt with "
+                        "--task recon")
     p.add_argument("--qtree", help="quantized artifact from cli.quantize "
                                    "(serves without the checkpoint)")
     p.add_argument("--data-parallel", type=int, default=1,
@@ -472,9 +568,15 @@ def main(argv=None) -> int:
                         "window into one run of batches (0 = off; try 5 "
                         "under concurrent load)")
     args = p.parse_args(argv)
+    if args.task == "classify":
+        p.error("--task classify: the ConvNeXt classify runner is not "
+                "ported (ROADMAP.md Queue 1 item 6)")
     if args.data_parallel != 1:
         p.error(f"--data-parallel {args.data_parallel}: multi-device "
-                "serving is not ported (ROADMAP.md Queue 1 item 14)")
+                "serving is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.task == "recon" and (args.qtree or not args.ckpt):
+        p.error("--task recon serves a --ckpt (a varnet_best.ckpt), not a "
+                "--qtree")
     if not args.ckpt and not args.qtree:
         p.error("one of --ckpt / --qtree is required")
 

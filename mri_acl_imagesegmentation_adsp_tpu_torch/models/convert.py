@@ -23,12 +23,25 @@ kernels DHWIO -> OIDHW, ``ConvTranspose_{n}`` kernels ``(2, 2, 2, Ci, Co)``
 flipped in space and laid out ``(Ci, Co, 2, 2, 2)``, ``GroupNorm_{j}``
 ``scale`` / ``bias`` to the InstanceNorm's ``weight`` / ``bias`` and
 ``PReLU_{j}`` ``negative_slope`` to its ``weight`` of shape ``(1,)``.
+
+``state_dict_from_flax_fastmri_unet`` carries a ``FastMRIUnet``'s ``params``
+to :class:`~.fastmri_unet.FastMRIUnet` (``ConvBlock_{i}`` ->
+``conv_blocks.{i}``, ``TransposeConvBlock_{i}`` -> ``tconv_blocks.{i}``,
+``Conv_0`` -> ``head``): kernels HWIO -> OIHW, each ``ConvTranspose_0``
+kernel ``(2, 2, Ci, Co)`` flipped in space and laid out ``(Ci, Co, 2, 2)``
+(Flax applies it flipped, ``ConvTranspose2d`` as it is), ``GroupNorm_{j}``
+``scale`` / ``bias`` to the InstanceNorm's ``weight`` / ``bias``. Both the
+plain and the phase-space lowering of the JAX module have this tree.
+``state_dict_from_flax_varnet`` carries a ``VarNet``'s: its
+``SensitivityModel_0/NormUnet_0/FastMRIUnet_0`` to ``sens_net.norm_unet.unet``,
+each ``VarNetBlock_{i}``'s U-Net to ``cascades.{i}.norm_unet.unet`` and its
+``dc_weight`` to ``cascades.{i}.dc_weight``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -197,4 +210,77 @@ def state_dict_from_flax_unet3d(params: Mapping[str, Any]
             sd[f"{prefix}.weight"] = torch.from_numpy(arr.reshape(1).copy())
         else:
             raise KeyError(f"params leaf {name} has no torch counterpart")
+    return sd
+
+
+def _fastmri_module(mod: tuple) -> Tuple[str, str]:
+    """A module path inside a ``FastMRIUnet`` tree -> (torch prefix, Flax
+    kind), or ``("", "")``."""
+    if mod == ("Conv_0",):
+        return "head", "Conv"
+    if len(mod) == 2:
+        blk = re.fullmatch(r"ConvBlock_(\d+)", mod[0])
+        sub = re.fullmatch(r"(Conv|GroupNorm)_([01])", mod[1])
+        if blk and sub:
+            kind = sub.group(1)
+            return (f"conv_blocks.{blk.group(1)}."
+                    f"{'convs' if kind == 'Conv' else 'norms'}."
+                    f"{sub.group(2)}"), kind
+        blk = re.fullmatch(r"TransposeConvBlock_(\d+)", mod[0])
+        if blk and mod[1] in ("ConvTranspose_0", "GroupNorm_0"):
+            kind = mod[1][:-2]
+            return (f"tconv_blocks.{blk.group(1)}."
+                    f"{'tconv' if kind == 'ConvTranspose' else 'norm'}"), kind
+    return "", ""
+
+
+def _fastmri_leaf(path: tuple, arr: np.ndarray
+                  ) -> Tuple[str, torch.Tensor]:
+    """A leaf of a ``FastMRIUnet`` tree -> (torch key, tensor), or raise."""
+    name = "/".join(path)
+    prefix, kind = _fastmri_module(path[:-1])
+    leaf = path[-1]
+    if kind in ("Conv", "ConvTranspose") and leaf == "kernel":
+        if arr.ndim != 4:
+            raise ValueError(f"{name}: expected an HWIO kernel, got shape "
+                             f"{arr.shape}")
+        arr = (arr[::-1, ::-1].transpose(2, 3, 0, 1)
+               if kind == "ConvTranspose" else arr.transpose(3, 2, 0, 1))
+        return f"{prefix}.weight", torch.from_numpy(np.array(arr, order="C"))
+    if (prefix == "head" and leaf == "bias") or (
+            kind == "GroupNorm" and leaf in ("scale", "bias")):
+        return (f"{prefix}.{'weight' if leaf == 'scale' else 'bias'}",
+                torch.from_numpy(arr.copy()))
+    raise KeyError(f"params leaf {name} has no torch counterpart")
+
+
+def state_dict_from_flax_fastmri_unet(params: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """Carry a JAX ``FastMRIUnet``'s ``params`` into a torch state_dict of
+    :class:`~.fastmri_unet.FastMRIUnet` (see the module docstring). Load it
+    with ``model.load_state_dict(sd)`` (strict)."""
+    return dict(_fastmri_leaf(path, arr)
+                for path, arr in _leaves(params).items())
+
+
+def state_dict_from_flax_varnet(params: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Carry a JAX ``VarNet``'s ``params`` into a torch state_dict of
+    ``recon/varnet.py:VarNet`` (see the module docstring)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params).items():
+        name = "/".join(path)
+        m = re.fullmatch(r"VarNetBlock_(\d+)", path[0])
+        if path[:3] == ("SensitivityModel_0", "NormUnet_0", "FastMRIUnet_0"):
+            prefix, rest = "sens_net.norm_unet.unet", path[3:]
+        elif m and path[1:] == ("dc_weight",):
+            sd[f"cascades.{m.group(1)}.dc_weight"] = torch.from_numpy(
+                arr.reshape(1).copy())
+            continue
+        elif m and path[1:3] == ("NormUnet_0", "FastMRIUnet_0"):
+            prefix, rest = f"cascades.{m.group(1)}.norm_unet.unet", path[3:]
+        else:
+            raise KeyError(f"params leaf {name} has no torch counterpart")
+        key, val = _fastmri_leaf(rest, arr)
+        sd[f"{prefix}.{key}"] = val
     return sd

@@ -1,7 +1,10 @@
-"""BatchNorm with the JAX package's statistics and update rule (NCHW).
+"""BatchNorm with the JAX package's statistics and update rule (NCHW), and
+the InstanceNorm that the fastMRI U-Net and the 3-D U-Net share.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/models/norm.py``:
-``BatchNorm`` (:65-116) and ``_scale_shift`` with its VJP (:42-58).
+``BatchNorm`` (:65-116) and ``_scale_shift`` with its VJP (:42-58); and
+Flax ``GroupNorm(num_groups=None, group_size=1)`` as the JAX package's
+``models/unet3d.py`` and ``models/fastmri_unet.py`` use it.
 
 torch's own ``nn.BatchNorm2d`` differs from it in train mode: it folds the
 unbiased batch variance into ``running_var``, where the reference folds the
@@ -26,6 +29,14 @@ backward pass (``torch.utils.checkpoint``, not reentrant). The recompute
 runs ``forward`` a second time on the same input, so it normalizes with
 the same batch statistics; it leaves the running statistics alone, which
 therefore move once a step, as the functional JAX update moves them.
+
+:class:`InstanceNorm` is that ``GroupNorm`` over ``(N, C, *)``: an affine
+``scale`` / ``bias`` (here ``weight`` / ``bias``, f32 parameters),
+statistics per sample and channel in f32, epsilon 1e-6 (not torch's 1e-5),
+no running statistics (train and eval normalize alike), the result in the
+input's dtype. It is torch's ``group_norm`` with a group a channel on the
+f32 upcast, a native kernel or two each way; its variance is two-pass
+where Flax's is ``max(0, E[x^2] - E[x]^2)``, the same up to f32 rounding.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from contextlib import contextmanager, nullcontext
 from typing import Iterator
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -64,6 +76,7 @@ def remat(on: bool, block: nn.Module, *args):
 
 # Flax's momentum: the weight of the running value in the update
 FLAX_MOMENTUM = 0.9
+GN_EPS = 1e-6          # flax.linen.GroupNorm's default epsilon
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -119,3 +132,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
         return _ScaleShift.apply(x, a, b)
+
+
+class InstanceNorm(nn.Module):
+    """Flax ``GroupNorm(num_groups=None, group_size=1)`` over ``(N, C, *)``
+    (see the module docstring)."""
+
+    def __init__(self, channels: int, eps: float = GN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Flax normalizes the f32 upcast and casts the result back; CUDA's
+        # group_norm also wants the input in its parameters' dtype
+        acc = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.group_norm(x.to(acc), x.shape[1], self.weight.to(acc),
+                            self.bias.to(acc), self.eps).to(x.dtype)

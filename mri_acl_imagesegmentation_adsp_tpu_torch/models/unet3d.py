@@ -16,10 +16,8 @@ What the Flax module computes, and this one with it:
   at stride 1 by (1, 1); the 1x1x1 residual conv not at all. Symmetric
   padding would give the same shapes on a grid shifted by one voxel.
 * ``GroupNorm(num_groups=None, group_size=1)`` is an InstanceNorm with an
-  affine ``scale`` / ``bias``: f32 statistics per sample and channel, the
-  variance as ``max(0, E[x^2] - E[x]^2)``, epsilon 1e-6, no running
-  statistics (train and eval normalize alike), the result in the compute
-  dtype.
+  affine ``scale`` / ``bias``: ``models/norm.py:InstanceNorm``, shared with
+  the fastMRI U-Net.
 * ``PReLU`` is one scalar slope, initialized to 0.01.
 * The transpose conv's Flax kernel ``(2, 2, 2, Ci, Co)`` is applied
   unflipped as a lhs-dilated conv, which is ``ConvTranspose3d`` with the
@@ -46,9 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import remat
+from .norm import InstanceNorm, remat
 
-GN_EPS = 1e-6          # flax.linen.GroupNorm's default epsilon
 PRELU_INIT = 0.01      # flax.linen.PReLU's default negative_slope
 
 
@@ -79,28 +76,6 @@ class SameConv3d(nn.Conv3d):
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
 
 
-class InstanceNorm3d(nn.Module):
-    """Flax ``GroupNorm(num_groups=None, group_size=1)`` over NCDHW."""
-
-    def __init__(self, channels: int, eps: float = GN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        acc = torch.promote_types(x.dtype, torch.float32)
-        xf = x.to(acc)
-        dims = tuple(range(2, x.dim()))
-        mean = xf.mean(dim=dims, keepdim=True)
-        mean2 = (xf * xf).mean(dim=dims, keepdim=True)
-        var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        shape = (1, -1) + (1,) * len(dims)
-        mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
-        y = (xf - mean) * mul + self.bias.view(shape)
-        return y.to(x.dtype)
-
-
 class PReLU(nn.Module):
     """Flax ``PReLU``: ``where(x >= 0, x, slope * x)`` with one scalar
     slope (held as shape ``(1,)``, torch's layout), cast to x's dtype."""
@@ -124,7 +99,7 @@ class ResUnit3D(nn.Module):
         self.convs = nn.ModuleList(
             [SameConv3d(cin if i == 0 else features, features, 3,
                         stride if i == 0 else 1) for i in range(num_convs)])
-        self.norms = nn.ModuleList([InstanceNorm3d(features)
+        self.norms = nn.ModuleList([InstanceNorm(features)
                                     for _ in range(num_convs)])
         self.acts = nn.ModuleList([PReLU() for _ in range(num_convs)])
         self.residual: Optional[SameConv3d] = None
@@ -185,6 +160,18 @@ class ResidualUNet3D(nn.Module):
         return self.head(y).float()
 
 
+def he_normal_(weight: torch.Tensor, fan_in: int,
+               generator: torch.Generator) -> None:
+    """Flax's ``he_normal`` in place: a normal truncated at 2 std, scaled
+    so that its std is ``sqrt(2 / fan_in)``, drawn on the CPU."""
+    # std of a unit normal truncated to [-2, 2] is 0.8796
+    std = (2.0 / fan_in) ** 0.5 / 0.87962566103423978
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    weight.copy_(w)
+
+
 def init_weights3d(model: nn.Module, generator: torch.Generator
                    ) -> nn.Module:
     """Seeded Flax init: He-normal (fan-in, truncated at 2 std) kernels,
@@ -198,14 +185,9 @@ def init_weights3d(model: nn.Module, generator: torch.Generator
                     fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
                 else:
                     fan_in = m.weight[0].numel()
-                # std of a unit normal truncated to [-2, 2] is 0.8796
-                std = (2.0 / fan_in) ** 0.5 / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                m.weight.copy_(w)
+                he_normal_(m.weight, fan_in, generator)
                 m.bias.zero_()
-            elif isinstance(m, InstanceNorm3d):
+            elif isinstance(m, InstanceNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, PReLU):

@@ -1,5 +1,5 @@
-"""AdamW after a global-norm clip, as the JAX package's optax chain computes
-them.
+"""AdamW after a global-norm clip, and RMSprop, as the JAX package's optax
+chains compute them.
 
 Counterpart: ``make_optimizer`` in
 ``mri_acl_imagesegmentation_adsp_tpu/train/engine.py:50-77``:
@@ -15,7 +15,16 @@ rate. Per step, for the gradients ``g`` of every parameter ``p``:
 * decoupled decay on every parameter, BatchNorm's and the biases included
   (optax masks none): ``p -= lr * (u + weight_decay * p)``.
 
-The step runs as multi-tensor (``torch._foreach_*``) operations on the
+VarNet trains with ``optax.adamw(lr, weight_decay)`` and no clip
+(``train/varnet_trainer.py:138-141`` there): ``ClippedAdamW`` with
+``max_grad_norm=0``. The recon U-Net trains with ``optax.rmsprop(lr,
+decay=0.99, eps=1e-8)`` (``train/unet_recon_trainer.py:83-87``), which is
+:class:`RMSprop` here: ``nu = decay nu + (1 - decay) g^2`` from zeros, then
+``p -= lr * g * rsqrt(nu + eps)``. optax 0.2.6 puts ``eps`` inside the root
+(``eps_in_sqrt=True``); ``torch.optim.RMSprop`` adds it outside, ``g /
+(sqrt(v) + eps)``, which is another optimizer while ``v`` is small.
+
+Each step runs as multi-tensor (``torch._foreach_*``) operations on the
 parameters' device and reads nothing back to the host.
 """
 
@@ -104,3 +113,42 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
     """AdamW(lr, weight_decay) after a clip at ``max_grad_norm`` (none when
     it is 0)."""
     return ClippedAdamW(params, lr, weight_decay, max_grad_norm)
+
+
+class RMSprop:
+    """optax's ``rmsprop(lr, decay, eps)`` (not centred, no momentum);
+    ``lr`` may be set between steps."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 decay: float = 0.99, eps: float = 1e-8):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.lr, self.decay, self.eps = float(lr), float(decay), float(eps)
+        self.nu = [torch.zeros_like(p, memory_format=torch.preserve_format)
+                   for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update from ``grads``, aligned with ``params``."""
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for "
+                             f"{len(self.params)} parameters")
+        g = list(grads)
+        torch._foreach_mul_(self.nu, self.decay)
+        torch._foreach_addcmul_(self.nu, g, g, value=1 - self.decay)
+        scale = torch._foreach_add(self.nu, self.eps)
+        torch._foreach_rsqrt_(scale)
+        torch._foreach_mul_(scale, g)
+        torch._foreach_mul_(scale, self.lr)
+        torch._foreach_sub_(self.params, scale)
+
+    def state_dict(self) -> dict:
+        """optax's ``ScaleByRmsState``: the second moments."""
+        return {"nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["nu"]) != len(self.nu):
+            raise ValueError(f"optimizer state for {len(state['nu'])} "
+                             f"parameters, not {len(self.nu)}")
+        for dst, src in zip(self.nu, state["nu"]):
+            dst.copy_(src)

@@ -150,3 +150,18 @@ def kernel_trace(fn, runs: int = 10, attempts: int = 3,
     return {"kernel_us": {k: us / n for k, (n, us) in seen.items()},
             "kernels_per_call": sum(n for n, _ in seen.values()) / runs,
             "trace_complete": complete}
+
+
+def back_to_back_ms(fn, calls: int) -> tuple:
+    """Milliseconds a call of ``fn`` over ``calls`` calls issued back to back
+    (no synchronize between them, so the host's issue time counts, as in a
+    training loop), by CUDA events; and the last call's result."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, out

@@ -187,15 +187,31 @@ def test_bad_requests(served):
 
 @pytest.mark.parametrize("flag", [["--task", "classify"], ["--task", "recon"],
                                   ["--data-parallel", "2"]])
-def test_main_refuses_what_is_not_ported(flag, capsys):
-    """``--task`` (the recon and classify runners) is unrecognized;
-    multi-device serving raises naming its flag."""
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--ckpt", "unused.ckpt", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err
-    assert ("unrecognized arguments" in err) == (flag[0] == "--task")
+def test_main_refuses_what_is_not_ported(flag, capsys, monkeypatch):
+    """``--task classify`` is refused naming ROADMAP item 6 and multi-device
+    serving naming item 7; ``--task recon`` is accepted and reaches the
+    server with its task."""
+    seen = []
+
+    def create_server(args):
+        seen.append(args)
+        raise KeyboardInterrupt      # stop before binding anything
+    monkeypatch.setattr(serve, "create_server", create_server)
+    if flag == ["--task", "recon"]:
+        with pytest.raises(KeyboardInterrupt):
+            serve.main(["--ckpt", "unused.ckpt", *flag])
+        assert seen[0].task == "recon" and seen[0].ckpt == "unused.ckpt"
+        with pytest.raises(SystemExit) as e:     # a qtree is not a VarNet
+            serve.main(["--qtree", "unused.npz", *flag])
+        assert e.value.code == 2
+        capsys.readouterr()
+    else:
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--ckpt", "unused.ckpt", *flag])
+        assert e.value.code == 2 and not seen
+        err = capsys.readouterr().err
+        assert flag[0] in err
+        assert ("item 6" if flag[1] == "classify" else "item 7") in err
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert flag[0] in "".join(capsys.readouterr().out.split())

@@ -8,8 +8,8 @@ over by ``state_dict_from_flax_unet3d``. Narrow models, channels (4, 8,
 16), so each JAX program compiles in a second or two.
 Tolerances, each stated where it is checked:
 - f32 logits: max|d| <= 1e-5 * max|logit| (convolutions summed in
-  another order; the InstanceNorm's one-pass variance is the same formula
-  on both sides);
+  another order; the InstanceNorm's two-pass variance against Flax's
+  one-pass ``E[x^2] - E[x]^2``, equal up to f32 rounding);
 - gradients of the DiceCE loss: loss 1e-5 relative, each parameter's
   gradient within 1e-4 * its max|g|, plus 1e-6 of the largest gradient in
   the net for the conv biases ahead of an InstanceNorm, whose gradients
