@@ -126,7 +126,24 @@ Phases, each printing one JSON line with its seconds:
      ``/metricsz`` and no mask kernel launched; the recon U-Net at full
      width (chans 32, 4 pools, 320x320): one f32 step card vs CPU and ms a
      bf16 step; ``cli.train_varnet`` and ``cli.evaluate`` refusing without
-     h5py (the message checked).
+     h5py (the message checked);
+ 14  the ConvNeXt classifier, from torch's own precision flags: the
+     ``convnext`` (base) variant's forward at full width (1-channel stem,
+     2x224x224) and tiny's with a 2-channel stem at 50x70, f32 card vs CPU
+     (TF32 off; gated by the CPU's own f32 distance from float64), base in
+     bf16 card vs CPU (16 bf16 spacings at the largest |logit|); ms a bf16
+     train step (the AMSGrad chain of the vendored YAMLs) and peak memory
+     for base and tiny (2-channel) at 224x224, batch 32, one base step
+     traced (busy share, launches); one f32 step card vs CPU (the loss and
+     every gradient against a one-ulp floor); ``tools/classify_synthetic.py``
+     whole with its gate (best val AUC above 0.9 and early stopping fired),
+     beside the JAX record; the recipe preempted after epoch 2 of 4 and
+     resumed, its history and best checkpoint bit-equal to a straight run
+     (cuDNN deterministic); a ``--task classify`` daemon on the recipe's
+     best checkpoint answering ``/v1/classify`` equal to in-process, 400
+     for a wrong channel count, 404 for the segment routes, ``/metricsz``;
+     the datasheet datasets and ``cli.train_classify`` refusing without
+     h5py (the message checked). No mask kernel runs.
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -151,6 +168,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -158,9 +176,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
+from mri_acl_imagesegmentation_adsp_tpu_torch.classify.dataset import (
+    DWISliceDataset, T2SliceDataset, weighted_bce_loss)
+from mri_acl_imagesegmentation_adsp_tpu_torch.classify.trainer import (
+    ClassifierArgs, ClassifierTrainer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli import (
-    evaluate as evaluate_cli, infer, launcher, quantize, serve, train_varnet)
+    evaluate as evaluate_cli, infer, launcher, quantize, serve,
+    train_classify, train_varnet)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
     load_model_from_ckpt, model_apply_fn)
 from mri_acl_imagesegmentation_adsp_tpu_torch import native
@@ -178,6 +202,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
     SURFACE_CHUNK, evaluate_volume, segment_volume_2d, segment_volumes_2d,
     slice_metrics, threshold_probs)
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.convnext import (
+    ConvNeXt, init_convnext_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import (
     build_unet, build_unet3d)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.torch_import import (
@@ -199,7 +225,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
     dwi_reconstruction, t2_reconstruction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
-    corpus_run, probe_label_prop, probe_recon, varnet_synthetic)
+    classify_synthetic, corpus_run, probe_label_prop, probe_recon,
+    varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -229,6 +256,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
 
 WATCHDOG_S = 900          # the whole run aims for well under 300 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 lanes x boost
 OPS_PER_WORD = 4 * (8 + 12)  # open_close.cu: passes x (shifts + AND/OR)
 EDGE_W = (1, 31, 32, 33, 63, 64, 65, 368, 369)
@@ -306,14 +334,24 @@ VARNET_STEP_CPU_S = 20.0   # the step check runs at full width when the
 VARNET_NARROW_CASCADES = 4
 VARNET_F64_CASCADES = 2    # the float64 step: the CPU's float64 cascade
                            # costs some 5x its f32 one (phase 13's time)
-VARNET_LOSS_RTOL = 1e-4    # f32 step card vs CPU: the loss, relative, and
-VARNET_GRAD_RTOL = 1e-3    # each gradient, times its max |g|; or
-                           # STEP_GRAD_FLOOR_X times the one-ulp floor
 VARNET_TIMING = ("protocol", "defaults")
 VARNET_BATCHES = (1, 2)
 VARNET_WARMUP, VARNET_TIMED = 3, 10
 VARNET_SMOKE_EPOCHS = 2    # of the protocol recipe's 13
 UNET_RECON_BATCH = 2       # 320x320 slices a recon U-Net step
+CLS_SIZE = 224             # the vendored loaders' crop / resize
+CLS_FWD_BATCH = 2
+CLS_ODD = (50, 70)         # tiny, 2-channel stem: Flax "SAME" pads (0, 1)
+CLS_FWD_RTOL = 1e-5        # f32 forward card vs CPU, times max |CPU|, or
+CLS_FWD_FLOOR_X = 10.0     # this many times the CPU's f32-f64 distance
+CLS_BF16_SPACINGS = 16     # bf16 card vs CPU at the largest |logit|
+CLS_BATCH = 32             # the vendored DataLoaders' batch
+CLS_STEP_BATCH = 2         # the f32 and float64 steps card vs CPU
+CLS_WARMUP, CLS_TIMED = 3, 10
+CLS_RESUME_EPOCHS, CLS_PREEMPT_AT = 4, 2
+CLS_SERVE_SLICES = 6
+JAX_CLASSIFY_RECORD = {"epochs_ran": 18, "best_val_auc": 1.0,
+                       "wall_s": 2095.3, "platform": "cpu"}
 
 
 def emit(obj: dict) -> None:
@@ -2788,14 +2826,14 @@ def _step_rule(card: dict, cpu: dict, moved: dict) -> dict:
     out = {"loss": cpu["loss"],
            "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
            "loss_rel_one_ulp": loss_floor,
-           "loss_tol": max(VARNET_LOSS_RTOL, STEP_GRAD_FLOOR_X * loss_floor),
+           "loss_tol": max(STEP_LOSS_RTOL, STEP_GRAD_FLOOR_X * loss_floor),
            "grad_worst_rel_to_max": grad_rel[worst],
            "grad_worst_tensor": worst,
            "grad_median_rel_to_max": float(np.median(list(
                grad_rel.values()))),
            "grad_tensors": len(grad_rel),
            "grad_floor_one_ulp": floor,
-           "grad_tol": max(VARNET_GRAD_RTOL, STEP_GRAD_FLOOR_X * floor),
+           "grad_tol": max(STEP_GRAD_RTOL, STEP_GRAD_FLOOR_X * floor),
            "cpu_step_s": cpu["s"]}
     if (out["loss_rel_err"] > out["loss_tol"]
             or out["grad_worst_rel_to_max"] > out["grad_tol"]):
@@ -3079,6 +3117,372 @@ def phase_varnet(dev: torch.device, defaults: dict, tmp: str) -> dict:
     return {"varnet": launches}
 
 
+def _cls_model(variant: str, in_chans: int, seed: int) -> ConvNeXt:
+    """A seeded f32 ConvNeXt (Flax's init) with its layer scales at 1:
+    at Flax's 1e-6 the blocks would hardly move the logits, and a check of
+    the forward would hold little more than the stem and the head."""
+    model = init_convnext_weights(ConvNeXt(variant, in_chans),
+                                  torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for blocks in model.stages:
+            for block in blocks:
+                block.gamma.fill_(1.0)
+    return model.eval()
+
+
+def _cls_as(model: ConvNeXt, dtype: torch.dtype) -> ConvNeXt:
+    """``model``'s weights in a model computing in ``dtype`` (float64: the
+    parameters too)."""
+    m = ConvNeXt(model.variant, model.in_chans, dtype=dtype)
+    m.load_state_dict(model.state_dict())
+    return (m.double() if dtype == torch.float64 else m).eval()
+
+
+def _cls_logits(model: ConvNeXt, x: torch.Tensor, d: torch.device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    m = copy.deepcopy(model).to(d)
+    with torch.no_grad(), f32_on_card(d):
+        out = m(x.to(d, dtype)).cpu().double()
+    del m
+    return out
+
+
+def cls_forward_card_vs_cpu(dev: torch.device) -> dict:
+    """f32 forward card (TF32 off) vs CPU of base at full width and of tiny
+    at the odd size, each gated by CLS_FWD_FLOOR_X times the CPU's own f32
+    distance from a float64 run (or CLS_FWD_RTOL); base in bf16 card vs
+    CPU within CLS_BF16_SPACINGS bf16 spacings at the largest |logit|."""
+    cpu = torch.device("cpu")
+    out = {}
+    cases = {"convnext_224": ("convnext", 1, (CLS_SIZE, CLS_SIZE)),
+             "tiny_2ch_50x70": ("tiny", 2, CLS_ODD)}
+    for name, (variant, chans, hw) in cases.items():
+        model = _cls_model(variant, chans, seed=14)
+        x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+            (CLS_FWD_BATCH, chans, *hw)).astype(np.float32))
+        t0 = time.perf_counter()
+        want = _cls_logits(model, x, cpu)
+        cpu_s = time.perf_counter() - t0
+        ref = _cls_logits(_cls_as(model, torch.float64), x, cpu,
+                          torch.float64)
+        got = _cls_logits(model, x, dev)
+        mx = float(ref.abs().max())
+        floor = float((want - ref).abs().max()) / mx
+        res = {"input": list(x.shape),
+               "rel_err_to_max": float((got - want).abs().max()) / mx,
+               "cpu_f32_vs_f64": floor,
+               "card_f32_vs_f64": float((got - ref).abs().max()) / mx,
+               "tolerance": max(CLS_FWD_RTOL, CLS_FWD_FLOOR_X * floor),
+               "max_abs_logit": mx, "cpu_forward_s": cpu_s,
+               "finite": bool(torch.isfinite(got).all())}
+        if res["rel_err_to_max"] > res["tolerance"] or not res["finite"]:
+            raise AssertionError(f"ConvNeXt {name} forward card vs CPU: "
+                                 f"{res}")
+        out[name] = res
+        if variant == "convnext":
+            bf = _cls_as(model, torch.bfloat16)
+            got16, want16 = _cls_logits(bf, x, dev), _cls_logits(bf, x, cpu)
+            spacing = _bf16_spacing(float(want16.abs().max()))
+            res16 = {"spacings_at_max": float((got16 - want16).abs().max())
+                     / spacing, "tolerance": CLS_BF16_SPACINGS,
+                     "bf16_vs_f64_spacings": float((got16 - ref).abs().max())
+                     / spacing}
+            if res16["spacings_at_max"] > CLS_BF16_SPACINGS:
+                raise AssertionError(f"ConvNeXt bf16 card vs CPU: {res16}")
+            out[name + "_bf16"] = res16
+    return out
+
+
+class _Weights:
+    """A dataset stand-in for the trainer: the class weights only."""
+    weights = [0.35, 0.65]
+
+
+def cls_time_ckpt(tmp: str, variant: str) -> str:
+    """The best checkpoint :func:`cls_step_time` saves for ``variant``."""
+    return os.path.join(tmp, f"clf_time_{variant}", "classifier_best.ckpt")
+
+
+def cls_step_time(dev: torch.device, tmp: str, variant: str, diff: bool,
+                  trace: bool) -> dict:
+    """ms a bf16 training step (forward, weighted BCE, backward, the
+    AMSGrad chain) through ``ClassifierTrainer.train_step`` at batch
+    CLS_BATCH, 224x224, and the peak memory, by CUDA events over
+    CLS_TIMED steps after CLS_WARMUP; with ``trace`` one more step under
+    ``torch.profiler``: the card's busy share and its costliest kernels,
+    and the kernels a step launches. The bound is the step's convolution
+    and matmul FLOP (3x the forward's, ``torch.utils.flop_counter``) at
+    the card's bf16 peak. The trained weights are saved as the trainer's
+    best checkpoint (:func:`cls_time_ckpt`)."""
+    tr = ClassifierTrainer(ClassifierArgs(
+        out_dir=os.path.dirname(cls_time_ckpt(tmp, variant)),
+        model=variant, diff=diff, amp=True, amsgrad=True), _Weights(),
+        _Weights(), device=dev)
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal(
+        (CLS_BATCH, 2 if diff else 1, CLS_SIZE, CLS_SIZE)).astype(
+            np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(CLS_BATCH) < 0.35).astype(
+        np.float32)).to(dev)
+    for _ in range(CLS_WARMUP):
+        tr.train_step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, (loss, _) = back_to_back_ms(lambda: tr.train_step(x, y), CLS_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with FlopCounterMode(display=False) as flops, torch.no_grad():
+        tr.model(x)
+    # a step: the forward's FLOP and twice them backward (the counter's
+    # backward formula takes a depthwise convolution for a dense one)
+    step_flop = 3 * flops.get_total_flops()
+    bound_ms = step_flop / BF16_FLOP_PER_S * 1e3
+    out = {"variant": variant, "in_chans": 2 if diff else 1,
+           "batch": CLS_BATCH, "ms_per_step": ms,
+           "slices_per_s": CLS_BATCH / ms * 1e3, "peak_gib": peak,
+           "gflop_per_step": step_flop / 1e9,
+           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+           "loss": float(loss)}
+    if trace:
+        out["trace"] = probe_recon.card_busy(lambda: tr.train_step(x, y))
+        out["trace"]["launches"] = kernel_trace(
+            lambda: tr.train_step(x, y), runs=2)["kernels_per_call"]
+    if not np.isfinite(out["loss"]):
+        raise AssertionError(f"ConvNeXt step: {out}")
+    tr._save_best()
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cls_grads(model: ConvNeXt, x: torch.Tensor, y: torch.Tensor,
+               d: torch.device, dtype: torch.dtype = torch.float32) -> dict:
+    """One weighted-BCE step's loss and gradients (by parameter name) from
+    ``model``'s weights on ``d`` (TF32 off), the inputs in ``dtype`` (the
+    model's own: f32, or float64 for a reference run)."""
+    m = copy.deepcopy(model).to(d).train()
+    t0 = time.perf_counter()
+    with f32_on_card(d):
+        loss = weighted_bce_loss(m(x.to(d, dtype)), y.to(d, dtype), tuple(
+            _Weights.weights))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+    names = [n for n, _ in m.named_parameters()]
+    return {"loss": float(loss.detach()), "s": time.perf_counter() - t0,
+            "grads": {n: g.cpu() for n, g in zip(names, grads)}}
+
+
+def cls_step_card_vs_cpu(dev: torch.device) -> dict:
+    """One f32 step of base at full width (batch CLS_STEP_BATCH, 224x224)
+    card (TF32 off) vs CPU, the loss and every gradient under phase 6's
+    rule (:func:`_step_rule`); the same step in float64 on both sides
+    under :func:`_f64_rule`."""
+    model = _cls_model("convnext", 1, seed=15)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal(
+        (CLS_STEP_BATCH, 1, CLS_SIZE, CLS_SIZE)).astype(np.float32))
+    y = torch.tensor([0.0, 1.0])
+    cpu = torch.device("cpu")
+    res = _step_rule(_cls_grads(model, x, y, dev),
+                     _cls_grads(model, x, y, cpu),
+                     _cls_grads(model, _ulp_moved(x), y, cpu))
+    ref = _cls_as(model, torch.float64)
+    f64 = _f64_rule(*(_cls_grads(ref, x, y, d, torch.float64)
+                      for d in (dev, cpu)))
+    return {"input": list(x.shape), **res, **f64}
+
+
+def cls_recipe(dev: torch.device, tmp: str) -> tuple:
+    """``tools/classify_synthetic.py`` whole, with its gate; returns the
+    summary and the best checkpoint."""
+    out_dir = os.path.join(tmp, "classify_synthetic")
+    summary = classify_synthetic.run(out_dir, str(dev))
+    if not summary["ok"]:
+        raise AssertionError(f"classify_synthetic missed its gate (best "
+                             f"val AUC > 0.9 and early stopping): {summary}")
+    res = {k: summary[k] for k in ("epochs_ran", "early_stopping_fired",
+                                   "best_val_auc", "final_val_auc",
+                                   "final_val_loss", "wall_s",
+                                   "seconds_per_epoch")}
+    res["jax_record"] = {**JAX_CLASSIFY_RECORD, "seconds_per_epoch":
+                         JAX_CLASSIFY_RECORD["wall_s"]
+                         / JAX_CLASSIFY_RECORD["epochs_ran"]}
+    return res, os.path.join(out_dir, "classifier_best.ckpt")
+
+
+def cls_resume(dev: torch.device, tmp: str) -> dict:
+    """The recipe for CLS_RESUME_EPOCHS epochs straight, and preempted by
+    ``request_preempt()`` after epoch CLS_PREEMPT_AT and resumed in a new
+    trainer: history and best checkpoint bit-equal (cuDNN deterministic)."""
+    flags = _precision_flags()
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("straight", "resumed"):
+            out_dir = os.path.join(tmp, f"classify_{name}")
+            train_ds, val_ds = classify_synthetic.make_datasets()
+            args = classify_synthetic.recipe_args(out_dir,
+                                                  CLS_RESUME_EPOCHS)
+            tr = ClassifierTrainer(args, train_ds, val_ds, device=dev)
+            if name == "resumed":
+                one_pass = tr._epoch_pass
+
+                def preempting(train, ds=None, tr=tr, one_pass=one_pass):
+                    res = one_pass(train, ds)
+                    if not train and tr.epoch == CLS_PREEMPT_AT:
+                        tr.request_preempt()
+                    return res
+                tr._epoch_pass = preempting
+                first = len(tr.fit()["history"])
+                tr = ClassifierTrainer(args, train_ds, val_ds, device=dev)
+                tr.fit(resume=True)
+            else:
+                tr.fit()
+            with open(os.path.join(out_dir, "history.json"),
+                      encoding="utf-8") as f:
+                runs[name] = (json.load(f), load_best(tr.best_path))
+    finally:
+        _set_precision_flags(flags)
+    (h_a, sd_a), (h_b, sd_b) = runs["straight"], runs["resumed"]
+    same = h_a == h_b and sd_a.keys() == sd_b.keys() and all(
+        torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+    out = {"epochs": len(h_a), "preempted_after": first,
+           "history_equal": h_a == h_b, "best_ckpt_equal": same}
+    if not same or first != CLS_PREEMPT_AT:
+        raise AssertionError(f"classifier resume: {out}")
+    return out
+
+
+def _http_code(url: str, body: bytes) -> int:
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                    timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as exc:
+        return exc.code
+
+
+def cls_serving_amp(dev: torch.device, ckpt: str) -> dict:
+    """A ``--task classify`` daemon on an ``amp`` base checkpoint: bf16
+    compute, and its reply to (N, H, W) slices at 224x224 equal to the
+    in-process runner's."""
+    server, thread, url = _start_server(ckpt, dev, task="classify")
+    runner = server.RequestHandlerClass.runner
+    try:
+        x = np.random.default_rng(16).standard_normal(
+            (CLS_SERVE_SLICES, CLS_SIZE, CLS_SIZE)).astype(np.float32)
+        got = _post(url + "/v1/classify", _npz_bytes(x=x))["probs"]
+        want = runner.classify(x)["probs"]
+    finally:
+        _stop_server(server, thread)
+    out = {"input": list(x.shape), "probs": got.tolist(),
+           "compute_dtype": str(runner.compute_dtype)}
+    if (runner.compute_dtype != torch.bfloat16
+            or got.shape != (CLS_SERVE_SLICES,)
+            or not np.isfinite(got).all() or not np.array_equal(got, want)):
+        raise AssertionError(f"/v1/classify amp: {out}, in-process "
+                             f"{want.tolist()}")
+    return out
+
+
+def cls_serving(dev: torch.device, ckpt: str) -> dict:
+    """A ``--task classify`` daemon on the recipe's best checkpoint: a
+    ``/v1/classify`` reply equal to the in-process runner's, the 400 and
+    404 answers, and ``/metricsz``."""
+    server, thread, url = _start_server(ckpt, dev, task="classify")
+    runner = server.RequestHandlerClass.runner
+    try:
+        _, val_ds = classify_synthetic.make_datasets()
+        x = np.stack(val_ds.xs[:CLS_SERVE_SLICES]).transpose(0, 2, 3, 1)
+        got = _post(url + "/v1/classify", _npz_bytes(x=x))["probs"]
+        want = runner.classify(x)["probs"]
+        codes = {
+            "one_channel": _http_code(url + "/v1/classify",
+                                      _npz_bytes(x=x[..., :1])),
+            "no_x": _http_code(url + "/v1/classify", _npz_bytes(img=x)),
+            "segment": _http_code(url + "/v1/segment",
+                                  _npz_bytes(img=x[..., 0])),
+            "segment_kspace": _http_code(url + "/v1/segment_kspace",
+                                         _npz_bytes(kspace=x))}
+        metrics = {k: v for k, v in _metricsz(url).items()
+                   if k in ("serve_requests_total", "serve_slices_total",
+                            "serve_errors_total")}
+    finally:
+        _stop_server(server, thread)
+    labels = val_ds.labels[:CLS_SERVE_SLICES]
+    out = {"probs": got.tolist(), "labels": labels.tolist(),
+           "codes": codes, "metricsz": metrics,
+           "compute_dtype": str(runner.compute_dtype)}
+    # the in-process call counts as a request too
+    want_metrics = {"serve_requests_total": 2.0,
+                    "serve_slices_total": 2.0 * CLS_SERVE_SLICES,
+                    "serve_errors_total": 2.0}
+    if (got.shape != (CLS_SERVE_SLICES,) or not np.array_equal(got, want)
+            or codes != {"one_channel": 400, "no_x": 400, "segment": 404,
+                         "segment_kspace": 404}
+            or metrics != want_metrics):
+        raise AssertionError(f"/v1/classify: {out}, in-process "
+                             f"{want.tolist()}")
+    return out
+
+
+def classify_h5_entry_points(tmp: str) -> dict:
+    """Without h5py, the datasheet datasets and ``cli.train_classify``
+    raise an ImportError naming it; where h5py is installed they are the
+    CPU tests' (``tests/test_torch_classify.py``)."""
+    sheet = os.path.join(tmp, "sheet.csv")
+    with open(sheet, "w", encoding="utf-8") as f:
+        f.write("fastmri_pt_id,fastmri_rawfile,folder,PIRADS,slice,"
+                "data_split\n0,case0.h5,.,4,1,training\n")
+    calls = {
+        "T2SliceDataset": lambda: T2SliceDataset(sheet, tmp),
+        "DWISliceDataset": lambda: DWISliceDataset(sheet, tmp),
+        "train_classify": lambda: train_classify.main([
+            "--mode", "dwi", "--datasheet", sheet, "--data-path", tmp,
+            "--out-dir", os.path.join(tmp, "clf_h5"), "--epochs", "1"])}
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        messages = {}
+        for name, call in calls.items():
+            try:
+                call()
+            except ImportError as exc:
+                messages[name] = str(exc)
+            else:
+                raise AssertionError(f"{name} ran without h5py")
+        if not all("h5py" in m for m in messages.values()):
+            raise AssertionError(f"refusals that do not name h5py: "
+                                 f"{messages}")
+        return {"h5py": False, "refusals": messages}
+    return {"h5py": True}
+
+
+def phase_classify(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """Phase 14 from torch's own precision flags: the ConvNeXt classifier.
+    Returns the mask kernels' launches on this path (none)."""
+    t0 = time.perf_counter()
+    _set_precision_flags(defaults)
+    reset_mask_launches()
+    out = {"forward": cls_forward_card_vs_cpu(dev)}
+    out["step_time"] = [
+        cls_step_time(dev, tmp, "convnext", False, trace=True),
+        cls_step_time(dev, tmp, "tiny", True, trace=False)]
+    out["step_f32"] = cls_step_card_vs_cpu(dev)
+    out["recipe"], ckpt = cls_recipe(dev, tmp)
+    out["resume"] = cls_resume(dev, tmp)
+    out["serve"] = cls_serving(dev, ckpt)
+    out["serve_amp"] = cls_serving_amp(dev, cls_time_ckpt(tmp, "convnext"))
+    out["h5_entry_points"] = classify_h5_entry_points(tmp)
+    launches = mask_launches()
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched mask kernels: {launches}")
+    if _precision_flags() != defaults:
+        raise AssertionError(f"phase 14 left the precision flags changed: "
+                             f"{_precision_flags()}, not {defaults}")
+    emit({"phase": "classify", "seconds": time.perf_counter() - t0,
+          "launches": launches, **out})
+    return {"classify": launches}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -3113,6 +3517,7 @@ def main() -> int:
         by_path["patch3d"] = phase_3d(dev, defaults, tmp, corpus["lists"])
         by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
         by_path.update(phase_varnet(dev, defaults, tmp))
+        by_path.update(phase_classify(dev, defaults, tmp))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

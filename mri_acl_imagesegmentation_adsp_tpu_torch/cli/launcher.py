@@ -10,7 +10,9 @@ cannot be abbreviated, so an abbreviation cannot slip past the preset's
 explicit-flag check.
 
 The preprocess stage reads the fastMRI single-coil ``.h5`` files under
-``--dataset-root`` (default ``$FASTMRI_ROOT``) through
+``--dataset-root`` (default ``FASTMRI_ROOT`` of ``configs/config.py``: a
+``.env`` between the working directory and the project root, else the
+environment) through
 ``data/adapters.py:FastMRISinglecoilAdapter`` and packs them with
 ``data/packer.py:build_preprocess`` on ``--device`` (``--skip-existing``
 keeps complete packs); reading ``.h5`` needs h5py, and without it the stage
@@ -31,7 +33,6 @@ and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
 from __future__ import annotations
 
 import argparse
-import os
 import random
 import sys
 from pathlib import Path
@@ -59,6 +60,15 @@ _FORWARDED_TRAIN_FIELDS = (
 _PRESETS = {
     "tuned-v5e": {"batch_size": 128, "lr": 4e-3},
 }
+
+
+def _default_dataset_root() -> Optional[Path]:
+    """``FASTMRI_ROOT`` from the config module (a ``.env`` between the
+    working directory and the project root, else the environment), as the
+    JAX launcher reads it."""
+    from ..configs import config
+    root = config.FASTMRI_ROOT
+    return Path(root) if root else None
 
 
 def _split_ratio(value: str) -> float:
@@ -160,12 +170,13 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
         allow_abbrev=False,
     )
-    env_root = os.getenv("FASTMRI_ROOT")
     paths = parser.add_argument_group("paths & stage gates")
     paths.add_argument("--dataset-root", type=Path,
-                       default=Path(env_root) if env_root else None,
+                       default=_default_dataset_root(),
                        help="Raw fastMRI single-coil dataset root (default "
-                            "$FASTMRI_ROOT).")
+                            "FASTMRI_ROOT from a .env between the working "
+                            "directory and the project root, or the "
+                            "environment).")
     paths.add_argument("--artifact-dir", type=Path,
                        default=Path("artifacts") / "fastmri_knee")
     paths.add_argument("--list-dir", type=Path, default=Path("lists"))

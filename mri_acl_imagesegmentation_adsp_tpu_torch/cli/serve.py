@@ -1,8 +1,9 @@
-"""Segmentation and reconstruction serving daemon over HTTP.
+"""Segmentation, reconstruction and classification serving daemon over
+HTTP.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/cli/serve.py``:
 ``_MicroBatcher`` (:83-165), ``_ModelRunner`` (:168-311), ``_ReconRunner``
-(:315-384), ``_Handler`` (:520-660), ``create_server`` and ``main``. The
+(:315-384), ``_ClassifyRunner`` (:387-451), ``_Handler`` (:520-660), ``create_server`` and ``main``. The
 process loads a checkpoint once and answers whole-volume requests on one
 device:
 
@@ -28,6 +29,10 @@ device:
                            (coils, aves, h, w, 2), or batched with a
                            leading slice axis; espirit may have one average
                            -> .npz {recon float32 (h, w) or (b, h, w)}
+  POST /v1/classify        (--task classify; --ckpt is a
+                           classifier_best.ckpt) body: .npz with "x"
+                           float32 (N,H,W,C), or (N,H,W) for a 1-channel
+                           stem -> .npz {probs float32 (N,)}
 
 ``--tta hflip`` serves the mean probability over the horizontal-flip orbit
 (``infer/segment.py:tta_wrap``). ``--microbatch-window-ms`` coalesces
@@ -46,9 +51,15 @@ model is built by ``train/varnet_trainer.py:build_varnet_from_args`` from
 ``varnet_best.ckpt.args.json``, its averages read off the checkpoint's
 weights, and loaded at start (a state_dict needs no input to shape it); it
 runs in the checkpoint's dtype (bf16 under ``amp``) and counts requests and
-slices (a batched request's slices) in ``/metricsz``. Refused: ``--task
-classify`` (ROADMAP.md Queue 1 item 6) and ``--data-parallel`` above 1
-(item 7).
+slices (a batched request's slices) in ``/metricsz``. ``--task classify``
+serves the ConvNeXt classifier: the model is built by
+``classify/trainer.py:build_classifier`` from
+``classifier_best.ckpt.args.json`` and its weights load at the first
+request, as the JAX runner loads them; an ``amp`` checkpoint runs in bf16;
+a request's channel count must be the stem's (else 400); the segment and
+recon routes answer 404, as the other tasks' answer 404 for
+``/v1/classify``; ``/metricsz`` counts requests and slices. Refused:
+``--data-parallel`` above 1 (ROADMAP.md Queue 1 item 7).
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
@@ -58,6 +69,8 @@ Usage:
       --qtree quant_int8.npz --port 8080 [--device cuda]
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
       --task recon --ckpt varnet_best.ckpt --port 8080 [--device cuda]
+  python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
+      --task classify --ckpt classifier_best.ckpt --port 8080 [--device cuda]
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from ..classify.trainer import build_classifier
 from ..data.preprocess import MRIKneePreprocessor
 from ..infer.segment import (segment_volume_2d, segment_volumes_2d,
                              threshold_probs, tta_wrap)
@@ -361,9 +375,66 @@ class _ReconRunner:
         return {"recon": out[0] if kspace.ndim == 5 else out}
 
 
+class _ClassifyRunner:
+    """ConvNeXt classification serving (``POST /v1/classify``) from a
+    ``classifier_best.ckpt`` and its ``.args.json``; the weights load at
+    the first request. Serializes the device."""
+
+    task = "classify"
+    k = classes = None
+
+    def __init__(self, ckpt_path: str, device: str | torch.device = "cuda"):
+        with open(ckpt_path + ".args.json", "r", encoding="utf-8") as f:
+            margs = json.load(f)
+        self.device = resolve_device(device)
+        self.model = build_classifier(margs)
+        self.in_chans = self.model.in_chans
+        self.compute_dtype = self.model.dtype
+        self.ckpt_path = ckpt_path
+        self.source = "ckpt"
+        self._loaded = False
+        self.requests = 0
+        self.slices = 0
+        self.errors = 0
+        self.seconds = 0.0
+        self.last_latency_s = 0.0
+        self._lock = threading.Lock()
+        self.stats_lock = threading.Lock()
+        self._on_close = contextlib.ExitStack()
+
+    count_error = _ModelRunner.count_error
+    _record = _ModelRunner._record
+    close = _ReconRunner.close
+
+    def classify(self, x: np.ndarray) -> dict:
+        """``(N, H, W, C)`` (or ``(N, H, W)`` for a 1-channel stem) slices
+        -> ``{"probs": (N,) float32}``, the sigmoid of the logit."""
+        if x.ndim == 3 and self.in_chans == 1:
+            x = x[..., None]
+        if x.ndim != 4 or x.shape[-1] != self.in_chans:
+            raise ValueError(
+                f"x must be (N,H,W,{self.in_chans}) "
+                f"{'or (N,H,W) ' if self.in_chans == 1 else ''}"
+                f"(model has a {self.in_chans}-channel stem), got shape "
+                f"{x.shape}")
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        with self._lock:
+            t0 = time.perf_counter()
+            if not self._loaded:
+                self.model.load_state_dict(load_best(self.ckpt_path))
+                self.model = self.model.to(self.device).eval()
+                self._loaded = True
+            with torch.no_grad():
+                logits = self.model(xt.to(self.device).permute(0, 3, 1, 2))
+            probs = torch.sigmoid(logits[:, 0].float()).cpu().numpy()
+            self._record(t0, int(x.shape[0]))
+        return {"probs": probs}
+
+
 def _build_runner(args):
-    """The recon runner under ``--task recon``; else the segmentation
-    runner of ``--qtree`` when given, else of ``--ckpt``."""
+    """The recon runner under ``--task recon``, the classify runner under
+    ``--task classify``; else the segmentation runner of ``--qtree`` when
+    given, else of ``--ckpt``."""
     device = resolve_device(getattr(args, "device", "cuda"))
     if int(getattr(args, "data_parallel", 1) or 1) != 1:
         raise ValueError(f"--data-parallel {args.data_parallel}: multi-"
@@ -374,6 +445,11 @@ def _build_runner(args):
             raise ValueError("--task recon requires --ckpt "
                              "(a varnet_best.ckpt)")
         return _ReconRunner(args.ckpt, device)
+    if getattr(args, "task", "segment") == "classify":
+        if not getattr(args, "ckpt", None):
+            raise ValueError("--task classify requires --ckpt "
+                             "(a classifier_best.ckpt)")
+        return _ClassifyRunner(args.ckpt, device)
     if getattr(args, "qtree", None):
         from .quantize import load_engine
         eng, qtree, meta = load_engine(args.qtree, device)
@@ -445,8 +521,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         url = urlparse(self.path)
-        paths = (("/v1/reconstruct",) if self.runner.task == "recon"
-                 else ("/v1/segment", "/v1/segment_kspace"))
+        paths = {"recon": ("/v1/reconstruct",),
+                 "classify": ("/v1/classify",)}.get(
+            self.runner.task, ("/v1/segment", "/v1/segment_kspace"))
         if url.path not in paths:
             return self._json(404, {"error": "unknown path for task "
                                              f"{self.runner.task!r}"})
@@ -463,6 +540,10 @@ class _Handler(BaseHTTPRequestHandler):
                             raise ValueError("npz body must contain arrays "
                                              "'kspace' and 'espirit'")
                     out = self.runner.reconstruct(z["kspace"], z["espirit"])
+                elif url.path == "/v1/classify":
+                    if "x" not in z:
+                        raise ValueError("npz body must contain array 'x'")
+                    out = self.runner.classify(z["x"])
                 elif url.path == "/v1/segment_kspace":
                     if "kspace" not in z:
                         raise ValueError(
@@ -533,18 +614,21 @@ def install_drain_handler(server) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        "Segmentation / reconstruction serving daemon (PyTorch)")
+        "Segmentation / reconstruction / classification serving daemon "
+        "(PyTorch)")
     p.add_argument("--task", choices=("segment", "recon", "classify"),
                    default="segment",
                    help="segment = 2-D U-Net family (POST /v1/segment, "
                         "/v1/segment_kspace); recon = VarNet (POST "
                         "/v1/reconstruct with {kspace, espirit} real-pair "
-                        "arrays, --ckpt is a varnet_best.ckpt); classify is "
-                        "not ported (ROADMAP.md Queue 1 item 6)")
+                        "arrays, --ckpt is a varnet_best.ckpt); classify = "
+                        "ConvNeXt (POST /v1/classify with {x} slices, "
+                        "--ckpt is a classifier_best.ckpt)")
     p.add_argument("--ckpt",
                    help="best checkpoint (train/checkpoint.py format) with "
                         "its .args.json beside it; a varnet_best.ckpt with "
-                        "--task recon")
+                        "--task recon, a classifier_best.ckpt with --task "
+                        "classify")
     p.add_argument("--qtree", help="quantized artifact from cli.quantize "
                                    "(serves without the checkpoint)")
     p.add_argument("--data-parallel", type=int, default=1,
@@ -568,15 +652,13 @@ def main(argv=None) -> int:
                         "window into one run of batches (0 = off; try 5 "
                         "under concurrent load)")
     args = p.parse_args(argv)
-    if args.task == "classify":
-        p.error("--task classify: the ConvNeXt classify runner is not "
-                "ported (ROADMAP.md Queue 1 item 6)")
     if args.data_parallel != 1:
         p.error(f"--data-parallel {args.data_parallel}: multi-device "
                 "serving is not ported (ROADMAP.md Queue 1 item 7)")
-    if args.task == "recon" and (args.qtree or not args.ckpt):
-        p.error("--task recon serves a --ckpt (a varnet_best.ckpt), not a "
-                "--qtree")
+    if args.task in ("recon", "classify") and (args.qtree or not args.ckpt):
+        p.error(f"--task {args.task} serves a --ckpt (a "
+                f"{'varnet' if args.task == 'recon' else 'classifier'}"
+                "_best.ckpt), not a --qtree")
     if not args.ckpt and not args.qtree:
         p.error("one of --ckpt / --qtree is required")
 

@@ -1,1 +1,1 @@
-"""Models of the port: the ResNet-encoder U-Net and its Flax converter."""
+"""Models of the port (the U-Nets, ConvNeXt) and their Flax converters."""

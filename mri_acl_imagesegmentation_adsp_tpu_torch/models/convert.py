@@ -35,7 +35,9 @@ plain and the phase-space lowering of the JAX module have this tree.
 ``state_dict_from_flax_varnet`` carries a ``VarNet``'s: its
 ``SensitivityModel_0/NormUnet_0/FastMRIUnet_0`` to ``sens_net.norm_unet.unet``,
 each ``VarNetBlock_{i}``'s U-Net to ``cascades.{i}.norm_unet.unet`` and its
-``dc_weight`` to ``cascades.{i}.dc_weight``.
+``dc_weight`` to ``cascades.{i}.dc_weight``. ``state_dict_from_flax_convnext``
+carries a ``ConvNeXt``'s to :class:`~.convnext.ConvNeXt` (its docstring
+has the names).
 """
 
 from __future__ import annotations
@@ -283,4 +285,75 @@ def state_dict_from_flax_varnet(params: Mapping[str, Any]
             raise KeyError(f"params leaf {name} has no torch counterpart")
         key, val = _fastmri_leaf(rest, arr)
         sd[f"{prefix}.{key}"] = val
+    return sd
+
+
+# ConvNeXt: top-level Flax module -> torch prefix (blocks mapped apart)
+_CONVNEXT_NAMES = {"Conv_0": "stem", "LayerNorm_0": "stem_norm",
+                   "LayerNorm_4": "head_norm", "Dense_0": "head",
+                   **{f"Conv_{s}": f"downsample.{s - 1}.conv"
+                      for s in (1, 2, 3)},
+                   **{f"LayerNorm_{s}": f"downsample.{s - 1}.norm"
+                      for s in (1, 2, 3)}}
+_CONVNEXT_BLOCK_NAMES = {"Conv_0": "dwconv", "LayerNorm_0": "norm",
+                         "Dense_0": "pwconv1", "Dense_1": "pwconv2"}
+
+
+def _convnext_leaf(prefix: str, path: tuple, arr: np.ndarray
+                   ) -> Tuple[str, torch.Tensor]:
+    """A Conv / LayerNorm / Dense leaf -> (torch key, tensor), or raise."""
+    kind, leaf = re.sub(r"_\d+$", "", path[-2]), path[-1]
+    if kind == "Conv" and leaf == "kernel":
+        arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+    elif kind == "Dense" and leaf == "kernel":
+        arr = arr.T                              # (in, out) -> (out, in)
+    elif not (leaf == "bias" or (kind == "LayerNorm" and leaf == "scale")):
+        raise KeyError(f"params leaf {'/'.join(path)} has no torch "
+                       "counterpart")
+    return (f"{prefix}.{'bias' if leaf == 'bias' else 'weight'}",
+            torch.from_numpy(np.array(arr, order="C")))
+
+
+def state_dict_from_flax_convnext(params: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """Carry a JAX ``ConvNeXt``'s ``params`` into a torch state_dict of
+    :class:`~.convnext.ConvNeXt`: ``Conv_0`` / ``LayerNorm_0`` the stem,
+    ``LayerNorm_{s}`` + ``Conv_{s}`` the downsample ahead of stage ``s``,
+    ``LayerNorm_4`` + ``Dense_0`` the head; ``ConvNeXtBlock_{j}``, numbered
+    in call order over all stages, goes to ``stages.{s}.{i}``, its stage
+    read off its width (the stages' widths increase). Conv kernels HWIO ->
+    OIHW (the depthwise ``(7, 7, 1, C)`` -> ``(C, 1, 7, 7)``), Dense kernels
+    transposed, LayerNorm ``scale`` -> ``weight``, ``layer_scale`` ->
+    ``gamma``. Load it with ``model.load_state_dict(sd)`` (strict)."""
+    leaves = _leaves(params)
+    widths = {}
+    for path, arr in leaves.items():
+        m = re.fullmatch(r"ConvNeXtBlock_(\d+)", path[0])
+        if m and path[1:] == ("layer_scale",):
+            widths[int(m.group(1))] = arr.shape[0]
+    stage_of = {w: s for s, w in enumerate(sorted(set(widths.values())))}
+    first = {}
+    for j in sorted(widths):
+        first.setdefault(widths[j], j)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in leaves.items():
+        m = re.fullmatch(r"ConvNeXtBlock_(\d+)", path[0])
+        if m:
+            j = int(m.group(1))
+            w = widths[j]
+            prefix = f"stages.{stage_of[w]}.{j - first[w]}"
+            if path[1:] == ("layer_scale",):
+                sd[f"{prefix}.gamma"] = torch.from_numpy(arr.copy())
+                continue
+            if len(path) != 3 or path[1] not in _CONVNEXT_BLOCK_NAMES:
+                raise KeyError(f"params leaf {'/'.join(path)} has no torch "
+                               "counterpart")
+            prefix = f"{prefix}.{_CONVNEXT_BLOCK_NAMES[path[1]]}"
+        elif len(path) == 2 and path[0] in _CONVNEXT_NAMES:
+            prefix = _CONVNEXT_NAMES[path[0]]
+        else:
+            raise KeyError(f"params leaf {'/'.join(path)} has no torch "
+                           "counterpart")
+        key, val = _convnext_leaf(prefix, path, arr)
+        sd[key] = val
     return sd

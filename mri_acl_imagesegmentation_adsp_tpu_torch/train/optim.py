@@ -24,6 +24,18 @@ decay=0.99, eps=1e-8)`` (``train/unet_recon_trainer.py:83-87``), which is
 (``eps_in_sqrt=True``); ``torch.optim.RMSprop`` adds it outside, ``g /
 (sqrt(v) + eps)``, which is another optimizer while ``v`` is small.
 
+The classifier trains with optax's own optimizers
+(``classify/trainer.py:137-149`` there): ``adam`` is ``optax.adamw``
+(``ClippedAdamW`` with ``max_grad_norm=0``); ``adam`` with ``amsgrad`` is
+the chain ``scale_by_amsgrad``, ``add_decayed_weights``,
+``scale_by_learning_rate`` (``ClippedAdamW(amsgrad=True)``): the update
+divides by the running maximum of the *bias-corrected* ``nu``, where
+``torch.optim.AdamW(amsgrad=True)`` keeps the maximum of the raw ``nu``
+(another optimizer), and the decay again reaches every parameter; ``sgd``
+is ``optax.sgd(lr, momentum)``, :class:`SGDMomentum`: ``trace = g +
+momentum * trace`` from zeros (no dampening, no decay), ``p -= lr *
+trace``.
+
 Each step runs as multi-tensor (``torch._foreach_*``) operations on the
 parameters' device and reads nothing back to the host.
 """
@@ -37,11 +49,14 @@ import torch
 
 class ClippedAdamW:
     """The optimizer; ``lr`` may be set between steps, and ``count`` is the
-    number of steps taken (optax's ``ScaleByAdamState.count``)."""
+    number of steps taken (optax's ``ScaleByAdamState.count``). With
+    ``amsgrad`` the update divides by ``nu_max``, the running maximum of
+    the bias-corrected second moment (optax's ``scale_by_amsgrad``)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  weight_decay: float, max_grad_norm: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 amsgrad: bool = False):
         self.params: List[torch.nn.Parameter] = list(params)
         self.lr = float(lr)
         self.weight_decay = float(weight_decay)
@@ -51,6 +66,8 @@ class ClippedAdamW:
                    for p in self.params]
         self.nu = [torch.zeros_like(p, memory_format=torch.preserve_format)
                    for p in self.params]
+        self.nu_max = ([torch.zeros_like(p) for p in self.params]
+                       if amsgrad else None)
         self.count = 0
 
     @torch.no_grad()
@@ -77,7 +94,11 @@ class ClippedAdamW:
         bc1 = float(1 - torch.tensor(b1) ** self.count)
         bc2 = float(1 - torch.tensor(b2) ** self.count)
         den = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(den)
+        if self.nu_max is not None:
+            torch._foreach_maximum_(self.nu_max, den)
+            den = torch._foreach_sqrt(self.nu_max)
+        else:
+            torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, den)
@@ -87,10 +108,14 @@ class ClippedAdamW:
         torch._foreach_sub_(self.params, upd)
 
     def state_dict(self) -> dict:
-        """The moments and the step count (optax's ``ScaleByAdamState``);
-        the learning rate is the schedule's, set each epoch."""
-        return {"mu": list(self.mu), "nu": list(self.nu),
-                "count": int(self.count)}
+        """The moments and the step count (optax's ``ScaleByAdamState``;
+        with ``amsgrad`` also ``nu_max``); the learning rate is the
+        schedule's, set each epoch."""
+        out = {"mu": list(self.mu), "nu": list(self.nu),
+               "count": int(self.count)}
+        if self.nu_max is not None:
+            out["nu_max"] = list(self.nu_max)
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -99,7 +124,12 @@ class ClippedAdamW:
                 self.nu):
             raise ValueError(f"optimizer state for {len(state['mu'])} "
                              f"parameters, not {len(self.mu)}")
-        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+        if (self.nu_max is None) != ("nu_max" not in state):
+            raise ValueError("optimizer state with and without amsgrad's "
+                             "nu_max do not mix")
+        for dst, src in zip(self.mu + self.nu + (self.nu_max or []),
+                            state["mu"] + state["nu"]
+                            + state.get("nu_max", [])):
             if dst.shape != src.shape:
                 raise ValueError(f"optimizer moment of shape "
                                  f"{tuple(src.shape)}, not "
@@ -151,4 +181,38 @@ class RMSprop:
             raise ValueError(f"optimizer state for {len(state['nu'])} "
                              f"parameters, not {len(self.nu)}")
         for dst, src in zip(self.nu, state["nu"]):
+            dst.copy_(src)
+
+
+class SGDMomentum:
+    """optax's ``sgd(lr, momentum)``: ``trace = g + momentum * trace``
+    from zeros, ``p -= lr * trace``; ``lr`` may be set between steps."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 momentum: float = 0.9):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.lr, self.momentum = float(lr), float(momentum)
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update from ``grads``, aligned with ``params``."""
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for "
+                             f"{len(self.params)} parameters")
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, list(grads))
+        torch._foreach_sub_(self.params, torch._foreach_mul(self.trace,
+                                                            self.lr))
+
+    def state_dict(self) -> dict:
+        """optax's ``TraceState``: the momentum buffers."""
+        return {"trace": list(self.trace)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["trace"]) != len(self.trace):
+            raise ValueError(f"optimizer state for {len(state['trace'])} "
+                             f"parameters, not {len(self.trace)}")
+        for dst, src in zip(self.trace, state["trace"]):
             dst.copy_(src)

@@ -47,7 +47,7 @@ from ..data.prefetch import prefetch
 from ..data.transforms import center_crop, center_crop_to_smallest
 from ..models.fastmri_unet import init_fastmri_weights
 from ..recon.varnet import VarNet
-from ..utils.device import f32_on_card, resolve_device
+from ..utils.device import f32_on_card, resolve_device, upload
 from . import checkpoint as ckpt_lib
 from .optim import ClippedAdamW
 from .ssim import ssim_loss
@@ -163,13 +163,6 @@ def _no_mark(stage: str) -> None:
     pass
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 class VarNetTrainer:
     """``VarNetTrainer(args, train_ds, val_ds, device=...).fit()``; the
     datasets are indexable sequences of ``VarNetSample``."""
@@ -215,9 +208,9 @@ class VarNetTrainer:
         """A list of same-shape samples as device tensors ``(kspace,
         espirit, target, max_value)``."""
         dev = self.device
-        return (_upload(np.stack([s.kspace for s in batch]), dev),
-                _upload(np.stack([s.espirit for s in batch]), dev),
-                _upload(np.stack([s.target for s in batch]), dev),
+        return (upload(np.stack([s.kspace for s in batch]), dev),
+                upload(np.stack([s.espirit for s in batch]), dev),
+                upload(np.stack([s.target for s in batch]), dev),
                 torch.tensor([s.max_value for s in batch],
                              dtype=torch.float32).to(dev))
 
@@ -271,8 +264,8 @@ class VarNetTrainer:
         """The combined output ``(h, w)`` of one sample, on the device."""
         self._init_if_needed(sample.kspace, sample.espirit)
         self.model.eval()
-        k = _upload(sample.kspace[None], self.device)
-        e = _upload(sample.espirit[None], self.device)
+        k = upload(sample.kspace[None], self.device)
+        e = upload(sample.espirit[None], self.device)
         with f32_on_card(self.device):
             return combine_directions(self.model(k, e))[0]
 
@@ -288,7 +281,7 @@ class VarNetTrainer:
         max_vals: Dict[str, float] = {}
         for sample in prefetch(self.val_ds, int(self.args.num_workers)):
             out = self._sample_out(sample)
-            target = _upload(np.asarray(sample.target, np.float32),
+            target = upload(np.asarray(sample.target, np.float32),
                              self.device)
             target, out = crop_pair(target, out, self.args.crop)
             mv = float(sample.max_value)

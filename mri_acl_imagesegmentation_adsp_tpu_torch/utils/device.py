@@ -5,6 +5,7 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator
 
+import numpy as np
 import torch
 
 
@@ -41,3 +42,12 @@ def f32_on_card(dev: torch.device) -> Iterator[None]:
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: through pinned memory and
+    without blocking the host on a card, as it is on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

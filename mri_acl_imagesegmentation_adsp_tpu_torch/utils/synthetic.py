@@ -1,12 +1,14 @@
 """Seeded synthetic knee slices and their single-coil k-space, in numpy.
 
-The port's own copy of ``tests/oracles.py:122-140`` (``synthetic_knee``,
-``synthetic_kspace_volume``): a bright Gaussian blob on a dark noisy
-background with sparse bright specks, like a magnitude MRI slice, and its
-centered orthonormal 2-D FFT as a fastMRI-style ``(S, H, W, 2)`` float32
-real pair (the oracle's complex64 k-space split into real and imaginary
-parts, bit for bit; ``scripts/make_corpus.py``'s volume ``i`` is
-``synthetic_knee_volume(2024 + i, 112, 368, 320)`` and its k-space); multi-coil k-space, ``(S, C, H, W, 2)``, of the same slices
+The port's own copy of ``tests/oracles.py:122-149`` (``synthetic_knee``,
+``synthetic_kspace_volume``, ``write_fake_fastmri_h5``): a bright Gaussian
+blob on a dark noisy background with sparse bright specks, like a magnitude
+MRI slice, and its centered orthonormal 2-D FFT, as the oracle's complex64
+k-space (and its fastMRI-style ``.h5``) or as a fastMRI-style ``(S, H, W,
+2)`` float32 real pair (the complex64 k-space split into real and
+imaginary parts, bit for bit; ``scripts/make_corpus.py``'s volume ``i`` is
+``synthetic_knee_volume(2024 + i, 112, 368, 320)`` and its k-space);
+multi-coil k-space, ``(S, C, H, W, 2)``, of the same slices
 seen through smooth complex coil sensitivities; the masks that hold the
 connected-components kernel at its edges; and a seeded ResNet state_dict
 in torchvision's layout, the kind of file ``encoder_weights`` loads."""
@@ -39,6 +41,27 @@ def synthetic_knee_volume(seed: int, s: int = 8, h: int = 640,
     """``(s, h, w)`` float32 synthetic slices made from ``seed``."""
     rng = np.random.default_rng(seed)
     return np.stack([synthetic_knee(rng, h, w) for _ in range(s)])
+
+
+def synthetic_kspace_volume(rng: np.random.Generator, s: int = 8,
+                            h: int = 64, w: int = 48) -> tuple:
+    """``(s, h, w)`` complex64 k-space of ``s`` slices drawn from ``rng``,
+    and the slices (``tests/oracles.py:synthetic_kspace_volume``)."""
+    imgs = np.stack([synthetic_knee(rng, h, w) for _ in range(s)])
+    return _fft2c(imgs).astype(np.complex64), imgs
+
+
+def write_fake_fastmri_h5(path: str, ksp: np.ndarray,
+                          target: np.ndarray | None = None) -> None:
+    """A fastMRI-style ``.h5``: ``kspace`` and, when given,
+    ``reconstruction_esc`` (``tests/oracles.py:write_fake_fastmri_h5``);
+    needs h5py."""
+    from ..native import import_h5py
+    h5py = import_h5py("writing a fastMRI .h5 file")
+    with h5py.File(path, "w") as hf:
+        hf.create_dataset("kspace", data=ksp)
+        if target is not None:
+            hf.create_dataset("reconstruction_esc", data=target)
 
 
 def synthetic_kspace_pairs(seed: int, s: int = 8, h: int = 640,

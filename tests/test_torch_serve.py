@@ -188,20 +188,20 @@ def test_bad_requests(served):
 @pytest.mark.parametrize("flag", [["--task", "classify"], ["--task", "recon"],
                                   ["--data-parallel", "2"]])
 def test_main_refuses_what_is_not_ported(flag, capsys, monkeypatch):
-    """``--task classify`` is refused naming ROADMAP item 6 and multi-device
-    serving naming item 7; ``--task recon`` is accepted and reaches the
-    server with its task."""
+    """Multi-device serving is refused naming ROADMAP item 7; ``--task
+    recon`` and ``--task classify`` are accepted and reach the server with
+    their task and checkpoint (and refuse a ``--qtree``)."""
     seen = []
 
     def create_server(args):
         seen.append(args)
         raise KeyboardInterrupt      # stop before binding anything
     monkeypatch.setattr(serve, "create_server", create_server)
-    if flag == ["--task", "recon"]:
+    if flag[0] == "--task":
         with pytest.raises(KeyboardInterrupt):
             serve.main(["--ckpt", "unused.ckpt", *flag])
-        assert seen[0].task == "recon" and seen[0].ckpt == "unused.ckpt"
-        with pytest.raises(SystemExit) as e:     # a qtree is not a VarNet
+        assert seen[0].task == flag[1] and seen[0].ckpt == "unused.ckpt"
+        with pytest.raises(SystemExit) as e:     # a qtree is neither model
             serve.main(["--qtree", "unused.npz", *flag])
         assert e.value.code == 2
         capsys.readouterr()
@@ -210,8 +210,7 @@ def test_main_refuses_what_is_not_ported(flag, capsys, monkeypatch):
             serve.main(["--ckpt", "unused.ckpt", *flag])
         assert e.value.code == 2 and not seen
         err = capsys.readouterr().err
-        assert flag[0] in err
-        assert ("item 6" if flag[1] == "classify" else "item 7") in err
+        assert flag[0] in err and "item 7" in err
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert flag[0] in "".join(capsys.readouterr().out.split())
