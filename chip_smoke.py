@@ -99,7 +99,7 @@ Phases, each printing one JSON line with its seconds:
      coils, 640x368, R=3, 32 ACS lines) and ``dwi_reconstruction`` at
      ``scripts/measure_dwi.py``'s (51 averages, 8 slices, 12 coils,
      200x104, R=2; the EPI timing from an ISMRMRD header), each timed over
-     3 runs after a warm-up with its peak memory, and held against the port
+     2 runs after a warm-up with its peak memory, and held against the port
      on the CPU on one slice (T2: slice 0 of the card's case; DWI: every
      output map); four pickled 35x640x368 magnitude volumes through
      ``build_preprocess`` with ``KneePckAdapter`` (each mask kernel once a
@@ -116,7 +116,7 @@ Phases, each printing one JSON line with its seconds:
      the protocol configuration (10 cascades, chans 20, 12 coils, one
      average) and at the defaults, batch 1 and 2, one protocol step traced
      (busy share, top kernels); ``tools/varnet_synthetic.py``'s protocol
-     recipe cut to 2 epochs (train loss and val NMSE / SSIM / PSNR by
+     recipe cut to 1 epoch (train loss and val NMSE / SSIM / PSNR by
      epoch); one f32 SSIM-loss step card vs CPU from that run's weights,
      the loss and every gradient against a one-ulp floor (at full width
      when the CPU's two steps stay under 20 s, else 4 cascades); a
@@ -143,7 +143,27 @@ Phases, each printing one JSON line with its seconds:
      best checkpoint answering ``/v1/classify`` equal to in-process, 400
      for a wrong channel count, 404 for the segment routes, ``/metricsz``;
      the datasheet datasets and ``cli.train_classify`` refusing without
-     h5py (the message checked). No mask kernel runs.
+     h5py (the message checked). No mask kernel runs;
+ 15  data parallelism (f32, TF32 off, cuDNN deterministic), on two volumes
+     packed for it (each mask kernel once a volume):
+     ``tools/probe_data_parallel.py`` on two ranks that share the card over
+     gloo against one rank: one step of the ResNet34 U-Net at 320x320
+     (dice_bce, light aug, global batch 8, 4 a rank; the loss, every
+     gradient and the BN running statistics against a one-ulp floor; in
+     float64 at a 160x160 crop, each tensor within 1e-6 of its max), the
+     row-sharded store bit-equal to the replicated one, ms a step on two
+     ranks and on one, ms and bytes of the gradient all-reduce,
+     ``validate_volume_sharded`` against one rank, a one-epoch
+     ``UNet2DTrainer`` run writing the one-rank run's files from rank 0,
+     one step of ConvNeXt base (224x224, batch 32) and of the 3-D U-Net
+     (reference width, ROI 160x160x64); ``segment_volume_2d`` on devices
+     ``[cuda:0, cuda:0]`` bit-equal to one device; a world-1 NCCL group
+     taking one U-Net step, its ``barrier`` holding the host until the
+     card's queued work has run; ``cli.launcher --data-parallel`` with one
+     rank more than cards refused ("requested N devices, have M");
+     ``graft_entry.dryrun_multichip(2)`` passing (its ``dryrun_rank`` and
+     the probe run in the same two ranks, one spawn for both, and
+     ``dryrun_check`` holds them to one device).
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -192,7 +212,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data import recon_data
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.adapters import (
     FastMRISinglecoilAdapter, KneePckAdapter)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
-    SliceStore, gather_batch)
+    SliceStore, gather_batch, read_list)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
     build_preprocess, pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
@@ -200,8 +220,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.quant import (
     QuantConfig, QuantizedUNet2D, int8_conv)
 from mri_acl_imagesegmentation_adsp_tpu_torch.infer.segment import (
-    SURFACE_CHUNK, evaluate_volume, segment_volume_2d, segment_volumes_2d,
-    slice_metrics, threshold_probs)
+    SURFACE_CHUNK, ReplicatedApply, evaluate_volume, segment_volume_2d,
+    segment_volumes_2d, slice_metrics, threshold_probs)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.convnext import (
     ConvNeXt, init_convnext_weights)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import (
@@ -224,9 +244,11 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.ops.restoration import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.recon import (
     dwi_reconstruction, t2_reconstruction)
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
+from mri_acl_imagesegmentation_adsp_tpu_torch import graft_entry
+from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
-    classify_synthetic, corpus_run, probe_label_prop, probe_recon,
-    varnet_synthetic)
+    classify_synthetic, corpus_run, probe_data_parallel, probe_label_prop,
+    probe_recon, varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -317,7 +339,7 @@ STEP3D_GRAD_FLOOR = 1e-5   # ... this times the net's max |g| (the conv
                            # biases ahead of a norm have zero gradients in
                            # exact arithmetic)
 T2_CASE, DWI_CASE = probe_recon.T2_CASE, probe_recon.DWI_CASE
-RECON_TIMED_RUNS = 3       # after one warm-up run
+RECON_TIMED_RUNS = 2       # after one warm-up run (3 until PR 14)
 RECON_REL = 1e-4           # a pixel "past": |card - CPU| > this x max|CPU|
 RECON_CARD_REL = 1e-3      # card vs CPU recon, relative to max |CPU| ...
 RECON_PIXELS_PAST = 1e-3   # ... or, for the thresholded DWI maps, at most
@@ -337,7 +359,7 @@ VARNET_F64_CASCADES = 2    # the float64 step: the CPU's float64 cascade
 VARNET_TIMING = ("protocol", "defaults")
 VARNET_BATCHES = (1, 2)
 VARNET_WARMUP, VARNET_TIMED = 3, 10
-VARNET_SMOKE_EPOCHS = 2    # of the protocol recipe's 13
+VARNET_SMOKE_EPOCHS = 1    # of the protocol recipe's 13 (2 until PR 14)
 UNET_RECON_BATCH = 2       # 320x320 slices a recon U-Net step
 CLS_SIZE = 224             # the vendored loaders' crop / resize
 CLS_FWD_BATCH = 2
@@ -2891,8 +2913,8 @@ def varnet_step_card_vs_cpu(dev: torch.device, ckpt: str, sample) -> dict:
     ref.cascades = ref.cascades[:VARNET_F64_CASCADES]
     f64 = _f64_rule(*(_varnet_grads(ref, sample, d, dtype=torch.float64)
                       for d in (dev, cpu_dev)))
-    return {"weights": "protocol run, 2 epochs", "cascades":
-            len(model.cascades), "full_width": full,
+    return {"weights": f"protocol run, {VARNET_SMOKE_EPOCHS} epoch(s)",
+            "cascades": len(model.cascades), "full_width": full,
             **_step_rule(card, cpu, moved),
             "f64_cascades": len(ref.cascades), **f64}
 
@@ -3483,6 +3505,159 @@ def phase_classify(dev: torch.device, defaults: dict, tmp: str) -> dict:
     return {"classify": launches}
 
 
+DP_VOLUMES = 2              # packed for phase 15: one to train, one to val
+DP_SEGMENT_BATCH = 7        # a replica's chunk, and one device's batch
+DP_SPIN_CYCLES = 200_000_000   # some 0.1 s of the card's clock
+
+
+def dp_pack(dev: torch.device, tmp: str) -> tuple:
+    """Phase 15's packs (the body mask's kernels once a volume) and their
+    train and val lists."""
+    pre = MRIKneePreprocessor(out_size=(320, 320), slice_keep=(0.3, 0.7),
+                              device=dev)
+    lists = []
+    for i in range(DP_VOLUMES):
+        d = os.path.join(tmp, "dp_art", f"vol{i}")
+        pack_kspace_volume(pre, synthetic_kspace_pairs(
+            seed=40 + i, s=VOLUME[0], h=VOLUME[1], w=VOLUME[2]), d)
+        lists.append(os.path.join(tmp, f"dp_{i}.txt"))
+        with open(lists[-1], "w", encoding="utf-8") as f:
+            f.write(os.path.join(d, "volume.npz"))
+    return lists[0], lists[1]
+
+
+def dp_launcher_refusal(tmp: str) -> dict:
+    """``cli.launcher --data-parallel`` asking one card more than there are
+    raises as JAX's ``make_mesh`` does, before any rank starts."""
+    n, have = torch.cuda.device_count() + 1, torch.cuda.device_count()
+    want = f"requested {n} devices, have {have}"
+    try:
+        launcher.run_training(
+            os.path.join(tmp, "dp_0.txt"), os.path.join(tmp, "dp_1.txt"),
+            os.path.join(tmp, "dp_refused"), launcher.build_parser(
+            ).parse_args(["--data-parallel", str(n)]))
+    except ValueError as exc:
+        if str(exc) != want:
+            raise AssertionError(f"launcher refusal said {exc!r}, not "
+                                 f"{want!r}") from exc
+        return {"data_parallel": n, "said": str(exc)}
+    raise AssertionError(f"--data-parallel {n} on {have} card(s) ran")
+
+
+def dp_segment(dev: torch.device, val_list: str) -> dict:
+    """``segment_volume_2d`` through a replica on each of ``[cuda:0,
+    cuda:0]`` (a batch of 2 x DP_SEGMENT_BATCH split in two) against one
+    device at a batch of DP_SEGMENT_BATCH: the same call shapes, so the
+    probabilities and masks are bit-equal."""
+    with np.load(read_list(val_list)[0]) as z:
+        vol = torch.from_numpy(z["img"]).to(dev)
+    model = _train_model(9).to(dev).eval()
+    one = model_apply_fn(model, lambda x: x)
+    dp = ReplicatedApply([one, model_apply_fn(copy.deepcopy(model),
+                                              lambda x: x)], [dev, dev])
+    want = segment_volume_2d(one, vol, batch_size=DP_SEGMENT_BATCH)
+    got = segment_volume_2d(dp, vol, batch_size=2 * DP_SEGMENT_BATCH)
+    masks_equal = torch.equal(threshold_probs(got, 1, 0.5),
+                              threshold_probs(want, 1, 0.5))
+    out = {"slices": int(vol.shape[0]), "devices": 2,
+           "probs_bit_equal": torch.equal(got, want),
+           "masks_bit_equal": masks_equal,
+           "probs_max_abs_diff": float((got - want).abs().max())}
+    if not (masks_equal and out["probs_bit_equal"]):
+        raise AssertionError(f"data-parallel segment_volume_2d: {out}")
+    return out
+
+
+def dp_nccl_world1(dev: torch.device, train_list: str, tmp: str) -> dict:
+    """A world-1 NCCL group (the NCCL path initializes and its collectives
+    run) taking one U-Net step, held to the one-rank step by the ulp
+    rule."""
+    src = SliceStore.from_list(train_list)
+    x = torch.from_numpy(src.images[:probe_data_parallel.GLOBAL_BATCH,
+                                    None].copy())
+    y = torch.from_numpy(src.masks[:probe_data_parallel.GLOBAL_BATCH]
+                         .astype(np.uint8))
+    group = mesh.make_mesh(1, 0, torch.device("cuda", dev.index or 0),
+                           "file://" + os.path.join(tmp, "nccl_init"),
+                           backend="nccl")
+    try:
+        got = probe_data_parallel.unet_step(group.device, x, y, group)
+        waits = dp_barrier_waits(group)
+    finally:
+        torch.distributed.destroy_process_group()
+    rule = probe_data_parallel.ulp_rule(
+        got, probe_data_parallel.unet_step(dev, x, y),
+        probe_data_parallel.unet_step(dev, probe_data_parallel.ulp_moved(x),
+                                      y), "world-1 NCCL step")
+    return {"backend": group.backend, "barrier": waits, **rule}
+
+
+def dp_barrier_waits(group: mesh.DataGroup) -> dict:
+    """``mesh.barrier`` under NCCL holds the host until the work queued on
+    the card before it has run (NCCL only queues a collective): a spin of
+    DP_SPIN_CYCLES clocks, still running when the barrier is called, has
+    ended when it returns."""
+    stream = torch.cuda.current_stream(group.device)
+    torch.cuda.synchronize(group.device)
+    torch.cuda._sleep(DP_SPIN_CYCLES)
+    pending = not stream.query()
+    t0 = time.perf_counter()
+    mesh.barrier(group)
+    out = {"spin_pending_before": pending, "spin_done_after": stream.query(),
+           "barrier_ms": (time.perf_counter() - t0) * 1e3,
+           "spin_cycles": DP_SPIN_CYCLES}
+    if not (out["spin_pending_before"] and out["spin_done_after"]):
+        raise AssertionError(f"barrier under NCCL did not wait for the "
+                             f"card: {out}")
+    return out
+
+
+def dp_rank(group: mesh.DataGroup, probe_args: tuple) -> dict:
+    """Phase 15's work on each of its ranks: the dry run's, then the
+    probe's (one spawn for both: a rank's start on the card costs some
+    20 s of CUDA set-up)."""
+    return {"dryrun": graft_entry.dryrun_rank(group, True),
+            "probe": probe_data_parallel.rank_main(group, *probe_args)}
+
+
+def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
+    """Phase 15: data parallelism on the card's one device. Returns the
+    mask kernels' launches on this path (packing its volumes)."""
+    t0 = time.perf_counter()
+    reset_mask_launches()
+    train_list, val_list = dp_pack(dev, tmp)
+    launches = mask_launches()
+    if set(launches.values()) != {DP_VOLUMES}:
+        raise AssertionError(f"phase 15 packed {DP_VOLUMES} volumes with "
+                             f"{launches} mask kernel launches")
+    out = {"launcher_refusal": dp_launcher_refusal(tmp)}
+    with probe_data_parallel.f32_deterministic():
+        out["segment"] = dp_segment(dev, val_list)
+        out["nccl_world1"] = dp_nccl_world1(dev, train_list, tmp)
+        # graft_entry.dryrun_multichip(2)'s ranks, then the probe's
+        t1, wall = time.perf_counter(), time.time()
+        devices, where = graft_entry.dryrun_devices(2)
+        ranks = mesh.spawn(dp_rank, 2, devices, timeout_s=900.0, args=(
+            probe_data_parallel.rank_args(train_list, val_list, tmp),))
+        out["probe"] = ranks[0]["probe"]
+        out["probe"]["part_seconds"]["spawn_to_probe_start"] = (
+            out["probe"].pop("started") - wall)
+        out["dryrun_multichip"] = graft_entry.dryrun_check(
+            [r["dryrun"] for r in ranks], devices, where)
+        out["ranks_seconds"] = time.perf_counter() - t1
+    if _precision_flags() != defaults:
+        _set_precision_flags(defaults)
+    timing = out["probe"]["timing"]
+    print(f"data parallel, 2 ranks sharing one card over gloo: "
+          f"{timing['ms_step_ranks']:.1f} ms a step (1 rank "
+          f"{timing['ms_step_one_rank']:.1f} ms), gradient all-reduce "
+          f"{timing['ms_allreduce']:.1f} ms for "
+          f"{timing['allreduce_bytes']} bytes", flush=True)
+    emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0,
+          "launches": launches, **out})
+    return {"data_parallel": launches}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -3518,6 +3693,7 @@ def main() -> int:
         by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
         by_path.update(phase_varnet(dev, defaults, tmp))
         by_path.update(phase_classify(dev, defaults, tmp))
+        by_path.update(phase_data_parallel(dev, defaults, tmp))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

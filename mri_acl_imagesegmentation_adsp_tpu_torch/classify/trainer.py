@@ -25,8 +25,17 @@ CPU generator seeded with ``args.seed``, when the trainer is made: the
 classifier global-pools, so nothing about it waits for the first batch.
 It computes in bf16 under ``amp`` and in f32 otherwise, TF32 off on a card
 (``utils/device.py:f32_on_card``). Batches are NCHW. The losses and logits
-stay on the device until the epoch ends. ``data_parallel`` above 1 is
-refused (ROADMAP.md Queue 1 item 7).
+stay on the device until the epoch ends.
+
+``data_parallel`` (JAX :83, :118-133): each rank of a ``parallel.DataGroup``
+(``group``; ``cli/train_classify.py`` spawns them) reads the same batches,
+runs its contiguous share of each batch's rows and averages its gradients
+and loss with the others' in one all-reduce (the ConvNeXt's LayerNorm is
+per sample and the loss a mean, so the average is the global batch's); a
+batch the world does not divide runs whole on every rank. The logits are
+gathered on every rank, so the ROC-AUC and the validation loss are the
+whole split's, as one rank computes them. Rank 0 alone writes the run
+directory.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from ..train.early_stopping import EarlyStopping
 from ..train.optim import ClippedAdamW, SGDMomentum
 from ..train.schedule import ReduceLROnPlateau
 from ..train.trainer import _preempt_signals
+from ..parallel.mesh import (
+    DataGroup, any_rank, average_flat, barrier, gather_rows, row_slice)
 from ..utils.device import f32_on_card, resolve_device, upload
 from .dataset import weighted_bce_loss
 from .trainer_utils import make_scheduler
@@ -95,7 +106,7 @@ class ClassifierArgs:
     patience: int = 7
     seed: int = 42
     amp: bool = True
-    data_parallel: int = 1         # only 1 is ported
+    data_parallel: int = 1         # ranks (their group is the trainer's)
     resume_keep: int = 0           # keep newest N resume snapshots (0 = all)
 
 
@@ -127,13 +138,19 @@ class ClassifierTrainer:
     shuffle, seed)`` yielding NCHW float32 ``x`` and labels ``y``."""
 
     def __init__(self, args: ClassifierArgs, train_ds, val_ds,
-                 device: str | torch.device = "cuda"):
-        if int(getattr(args, "data_parallel", 1) or 1) != 1:
-            raise ValueError(f"data_parallel {args.data_parallel}: multi-"
-                             "device training is not ported (ROADMAP.md "
-                             "Queue 1 item 7)")
+                 device: str | torch.device = "cuda",
+                 group: Optional[DataGroup] = None):
+        world = group.world if group is not None else 1
+        if int(getattr(args, "data_parallel", 1) or 1) != world:
+            raise ValueError(
+                f"data_parallel {args.data_parallel} on {world} rank(s): "
+                "start the ranks with cli.train_classify --data-parallel "
+                "(or parallel.spawn, passing each rank's group)")
         self.args = args
-        self.device = resolve_device(device)
+        self.group = group
+        self.primary = group is None or group.primary
+        self.device = (group.device if group is not None
+                       else resolve_device(device))
         os.makedirs(args.out_dir, exist_ok=True)
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -158,21 +175,31 @@ class ClassifierTrainer:
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> tuple:
         """One optimizer step on a device batch; returns the loss and the
-        logits from before the update, on the device."""
+        logits from before the update, on the device (under a group: of the
+        global batch, this rank running its rows)."""
         self.model.train()
+        b = int(x.shape[0])
+        rows = row_slice(b, self.group)
+        if rows is not None:
+            x, y = x[rows], y[rows]
         with f32_on_card(self.device):
             logits = self.model(x)
             loss = weighted_bce_loss(logits, y, self.weights)
             grads = torch.autograd.grad(loss, self.optimizer.params)
+        loss = loss.detach()
+        if self.group is not None:
+            *grads, loss = average_flat(list(grads) + [loss], self.group)
         self.optimizer.step(grads)
-        return loss.detach(), logits.detach()
+        return loss, gather_rows(logits.detach(), b, self.group)
 
     @torch.no_grad()
     def eval_step(self, x: torch.Tensor, y: torch.Tensor,
                   weights: tuple) -> tuple:
         self.model.eval()
+        rows = row_slice(int(x.shape[0]), self.group)
         with f32_on_card(self.device):
-            logits = self.model(x)
+            logits = self.model(x if rows is None else x[rows])
+        logits = gather_rows(logits, int(x.shape[0]), self.group)
         return weighted_bce_loss(logits, y, weights), logits
 
     def _epoch_pass(self, train: bool, ds=None) -> tuple:
@@ -221,10 +248,12 @@ class ClassifierTrainer:
             "plateau": self.plateau.state_dict(),
             "history": self.history,
         }
-        ckpt_lib.save_resume(self.args.out_dir, epoch,
-                             {"model": self.model.state_dict(),
-                              "optimizer": self.optimizer.state_dict()},
-                             host, keep=self.args.resume_keep)
+        if self.primary:
+            ckpt_lib.save_resume(self.args.out_dir, epoch,
+                                 {"model": self.model.state_dict(),
+                                  "optimizer": self.optimizer.state_dict()},
+                                 host, keep=self.args.resume_keep)
+        barrier(self.group)
 
     def try_resume(self) -> bool:
         """Restore the newest snapshot in ``out_dir``, if there is one."""
@@ -264,9 +293,10 @@ class ClassifierTrainer:
             tr_loss, tr_auc = self._epoch_pass(train=True)
             vl_loss, vl_auc = self._epoch_pass(train=False)
             self.plateau.step(vl_loss)
-            print(f"[clf] epoch {ep:03d} train {tr_loss:.4f}/{tr_auc:.3f} "
-                  f"val {vl_loss:.4f}/{vl_auc:.3f} lr {lr:.2e} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            if self.primary:
+                print(f"[clf] epoch {ep:03d} train {tr_loss:.4f}/"
+                      f"{tr_auc:.3f} val {vl_loss:.4f}/{vl_auc:.3f} "
+                      f"lr {lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
             self.history.append({"epoch": ep, "train_loss": tr_loss,
                                  "train_auc": tr_auc, "val_loss": vl_loss,
                                  "val_auc": vl_auc, "lr": lr})
@@ -276,19 +306,23 @@ class ClassifierTrainer:
                 break
             if save_resume_every and ep % save_resume_every == 0:
                 self._save_resume(ep)
+            self._preempt = any_rank(self._preempt, self.group)
             if self._preempt:
                 self._save_resume(ep)
                 print(f"[preempt] resume snapshot saved (epoch {ep} done);"
                       " stopping")
                 break
-        with open(os.path.join(a.out_dir, "history.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(self.history, f, indent=2)
+        if self.primary:
+            with open(os.path.join(a.out_dir, "history.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(self.history, f, indent=2)
+        barrier(self.group)
         return {"best_ckpt": self.best_path, "history": self.history}
 
     def _save_best(self) -> None:
-        ckpt_lib.save_best(self.best_path, self.model.state_dict(),
-                           asdict(self.args))
+        if self.primary:
+            ckpt_lib.save_best(self.best_path, self.model.state_dict(),
+                               asdict(self.args))
 
     def evaluate(self, ds, ckpt_path: Optional[str] = None
                  ) -> Dict[str, float]:

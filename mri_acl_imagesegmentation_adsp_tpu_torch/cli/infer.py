@@ -12,7 +12,10 @@ JAX CLI builds its model with ``dtype=bfloat16``; any other runs in f32
 with TF32 off. ``--quant int8|folded`` quantizes the checkpoint on the
 first listed volume's first 16 slices (``infer/quant.py``); ``--qtree``
 serves a ``cli.quantize`` artifact, with no checkpoint needed, and an
-explicit ``--quant`` overrides the artifact's mode.
+explicit ``--quant`` overrides the artifact's mode. ``--data-parallel N``
+runs each batch split over ``N`` model replicas in this process, on
+``cuda:0`` .. ``cuda:N-1`` (fewer cards raise), or ``N`` CPU replicas with
+``--device cpu`` (``infer/segment.py:ReplicatedApply``); 2-D only.
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer \\
@@ -26,17 +29,21 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from ..data.hbm_loader import read_list
 from ..infer.quant import QuantConfig, QuantizedUNet2D
-from ..infer.segment import evaluate_volume, segment_volume_2d, threshold_probs
+from ..infer.segment import (
+    ReplicatedApply, evaluate_volume, segment_volume_2d, threshold_probs,
+    tree_to)
 from ..models.factory import build_unet, build_unet3d
+from ..parallel.mesh import mesh_devices
 from ..train import checkpoint as ckpt_lib
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
@@ -76,6 +83,34 @@ def model_apply_fn(model: torch.nn.Module, norm: Callable) -> Callable:
     return apply_fn
 
 
+def replicated(make: Callable[[torch.device, int], Callable],
+               devices: Sequence[torch.device]) -> Callable:
+    """``make(device, i)`` on one device, else a :class:`ReplicatedApply`
+    of one ``make(devices[i], i)`` a device."""
+    if len(devices) == 1:
+        return make(devices[0], 0)
+    return ReplicatedApply([make(d, i) for i, d in enumerate(devices)],
+                           devices)
+
+
+def model_replicas(model: torch.nn.Module, norm: Callable,
+                   devices: Sequence[torch.device]) -> Callable:
+    """:func:`model_apply_fn` of ``model`` (on ``devices[0]``) and of a copy
+    of it on each further device."""
+    return replicated(lambda d, i: model_apply_fn(
+        model if i == 0 else copy.deepcopy(model).to(d), norm), devices)
+
+
+def qtree_replicas(eng: QuantizedUNet2D, qtree, norm: Callable,
+                   devices: Sequence[torch.device]) -> Callable:
+    """The quantized ``eng`` on ``qtree`` (on ``devices[0]``) and on a copy
+    of the tree on each further device."""
+    def make(d, i):
+        tree = qtree if i == 0 else tree_to(qtree, d)
+        return lambda x: eng.apply(tree, norm(x))
+    return replicated(make, devices)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         "Whole-volume segmentation inference (PyTorch)", allow_abbrev=False)
@@ -103,8 +138,8 @@ def main(argv=None) -> int:
                    help="quantized artifact from cli.quantize; serves "
                         "without the checkpoint")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard each batch over; only 1 is "
-                        "ported")
+                   help="model replicas to split each batch over, one card "
+                        "each (CPU replicas with --device cpu)")
     p.add_argument("--ckpt3d",
                    help="3-D checkpoint (trainer3d best3d.ckpt): whole-"
                         "volume 3-D inference instead of 2-D slices")
@@ -114,12 +149,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     args = p.parse_args(argv)
-    if args.data_parallel != 1:
-        p.error(f"--data-parallel {args.data_parallel}: multi-device "
-                "inference is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.data_parallel < 1:
+        p.error(f"--data-parallel {args.data_parallel} is below 1")
     if args.spatial_parallel != 1:
         p.error(f"--spatial-parallel {args.spatial_parallel}: depth-sharded "
-                "3-D inference is not ported (ROADMAP.md Queue 1 item 7)")
+                "3-D inference is not ported (ROADMAP.md Queue 1 item 7b)")
+    if args.ckpt3d and args.data_parallel != 1:
+        p.error(f"--data-parallel {args.data_parallel} splits 2-D batches; "
+                "--ckpt3d infers a whole volume at once")
     if args.ckpt3d:
         dev = resolve_device(args.device)
         with f32_on_card(dev):
@@ -128,6 +165,10 @@ def main(argv=None) -> int:
         p.error("one of --ckpt / --qtree / --ckpt3d is required")
 
     dev = resolve_device(args.device)
+    devices = [dev]
+    if args.data_parallel > 1:
+        devices = mesh_devices(args.data_parallel, args.device)
+        dev = devices[0]
     if args.qtree:
         from .quantize import load_engine
         eng, qtree, meta = load_engine(args.qtree, dev)
@@ -141,9 +182,7 @@ def main(argv=None) -> int:
                 arch=meta["arch"])
         k, classes = int(meta["k"]), int(meta["classes"])
         norm = make_input_norm(bool(meta["imagenet_norm"]))
-
-        def apply_fn(x):
-            return eng.apply(qtree, norm(x))
+        apply_fn = qtree_replicas(eng, qtree, norm, devices)
     else:
         model, margs = load_model_from_ckpt(args.ckpt, dev)
         k, classes = int(margs.get("k", 1)), int(margs.get("classes", 1))
@@ -156,11 +195,9 @@ def main(argv=None) -> int:
             eng, qtree = QuantizedUNet2D.from_model(
                 model, calib, QuantConfig(mode=args.quant,
                                           compute_dtype=model.compute_dtype))
-
-            def apply_fn(x):
-                return eng.apply(qtree, norm(x))
+            apply_fn = qtree_replicas(eng, qtree, norm, devices)
         else:
-            apply_fn = model_apply_fn(model, norm)
+            apply_fn = model_replicas(model, norm, devices)
 
     with f32_on_card(dev):
         return _run(args, apply_fn, k, classes, dev)

@@ -22,8 +22,17 @@ with ``--skip-preprocess``. The TPU extension flags are accepted and
 passed on: ``--resume``, ``--save-resume-every``, ``--save-resume-steps``,
 ``--resume-keep``, ``--preempt-save``, ``--profile-epochs``, ``--remat``
 and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
-(``--ckpt-backend orbax``, ``--ckpt-async``, ``--store-sharded``,
-``--data-parallel`` above 1).
+(``--ckpt-backend orbax``, ``--ckpt-async``).
+
+Data parallelism: ``--data-parallel N`` trains on ``N`` ranks that this
+process spawns (``parallel.spawn``), one card each on ``cuda:0`` ..
+``cuda:N-1`` over NCCL (fewer cards raise "requested N devices, have M"),
+or ``N`` CPU ranks over gloo with ``--device cpu``; the preprocess and
+split stages run once, before them. ``--store-sharded`` keeps ``1/N`` of
+each slice store on a rank. ``--multihost`` joins the group that torchrun
+describes (one process a card, on each host ``torchrun --nnodes H
+--nproc-per-node C ... -m ...cli.launcher --multihost``): rank 0 runs the
+preprocess and split stages while the others wait, then every rank trains.
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.launcher \\
       --dataset-root /data/singlecoil_train --artifact-dir artifacts \\
@@ -41,6 +50,8 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..data.adapters import FastMRISinglecoilAdapter
 from ..data.packer import build_preprocess
+from ..parallel.mesh import (
+    DataGroup, barrier, env_group, mesh_devices, spawn)
 from ..train.trainer import UNet2DArgs, UNet2DTrainer
 
 # UNet2DArgs fields the launcher forwards verbatim (flag name == field name,
@@ -144,19 +155,36 @@ def generate_split(artifact_dir: Path, list_dir: Path, ratio: float,
 
 
 def build_trainer(train_list: Path, val_list: Path, out_dir: Path,
-                  args: argparse.Namespace) -> UNet2DTrainer:
-    """The trainer of the parsed flags on ``args.device``, not yet run: a
-    caller may hold it, e.g. to ``request_preempt()`` it."""
+                  args: argparse.Namespace,
+                  group: Optional[DataGroup] = None) -> UNet2DTrainer:
+    """The trainer of the parsed flags on ``args.device`` (or one rank of
+    ``group``), not yet run: a caller may hold it, e.g. to
+    ``request_preempt()`` it."""
     fields = {name: getattr(args, name) for name in _FORWARDED_TRAIN_FIELDS}
     return UNet2DTrainer(UNet2DArgs(
         train_list=str(train_list), val_list=str(val_list),
-        out_dir=str(out_dir), **fields), device=args.device)
+        out_dir=str(out_dir), multihost=args.multihost, **fields),
+        device=args.device, group=group)
+
+
+def _train_rank(group: DataGroup, train_list: Path, val_list: Path,
+                out_dir: Path, args: argparse.Namespace) -> dict:
+    """One spawned rank of ``--data-parallel``."""
+    return build_trainer(train_list, val_list, out_dir, args, group).run()
 
 
 def run_training(train_list: Path, val_list: Path, out_dir: Path,
-                 args: argparse.Namespace) -> dict:
-    """Build the trainer of the parsed flags and train."""
-    return build_trainer(train_list, val_list, out_dir, args).run()
+                 args: argparse.Namespace,
+                 group: Optional[DataGroup] = None) -> dict:
+    """Build the trainer of the parsed flags and train: in this process
+    (on ``group``'s rank under ``--multihost``), or on ``--data-parallel``
+    spawned ranks, returning rank 0's result."""
+    n = int(args.data_parallel)
+    if n > 1 and not args.multihost:
+        devices = mesh_devices(n, args.device)
+        return spawn(_train_rank, n, devices, timeout_s=1e6,
+                     args=(train_list, val_list, out_dir, args))[0]
+    return build_trainer(train_list, val_list, out_dir, args, group).run()
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +269,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     ext = parser.add_argument_group(
         "JAX package extensions (the trainer refuses those not ported)")
-    ext.add_argument("--data-parallel", type=int, default=1)
+    ext.add_argument("--data-parallel", type=int, default=1,
+                     help="ranks to train on, one card each (CPU ranks "
+                          "with --device cpu)")
+    ext.add_argument("--multihost", action="store_true",
+                     help="join the group torchrun describes (WORLD_SIZE, "
+                          "RANK, LOCAL_RANK, MASTER_ADDR)")
     ext.add_argument("--store-dtype", default="float32",
                      choices=["float32", "bfloat16"],
                      help="Device slice-store dtype.")
@@ -288,6 +321,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     artifact_dir = Path(ns.artifact_dir).resolve()
     list_dir = Path(ns.list_dir).resolve()
     out_dir = Path(ns.out_dir).resolve()
+    group = env_group(ns.device) if ns.multihost else None
+    if group is not None and not group.primary:
+        # rank 0 runs the stages before training; its lists are the run's
+        barrier(group)
+        return _train_listed(parser, ns, list_dir, out_dir, None, None,
+                             group)
 
     if ns.skip_preprocess:
         print("[launcher] stage skipped: preprocess")
@@ -306,7 +345,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     else:
         made_train, made_val = generate_split(
             artifact_dir, list_dir, ns.split_ratio, ns.split_seed)
+    barrier(group)
+    return _train_listed(parser, ns, list_dir, out_dir, made_train, made_val,
+                         group)
 
+
+def _train_listed(parser: argparse.ArgumentParser, ns: argparse.Namespace,
+                  list_dir: Path, out_dir: Path, made_train: Optional[Path],
+                  made_val: Optional[Path],
+                  group: Optional[DataGroup]) -> int:
+    """The train stage (unless skipped) on the given lists, else the
+    split's, else ``list_dir``'s."""
     train_list = (Path(ns.train_list).resolve() if ns.train_list
                   else made_train or list_dir / "train.txt")
     val_list = (Path(ns.val_list).resolve() if ns.val_list
@@ -314,13 +363,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for label, path in (("train", train_list), ("val", val_list)):
         if not path.exists():
             parser.error(f"{label} list does not exist: {path}")
-
     if ns.skip_train:
         print("[launcher] stage skipped: train")
         return 0
-
     print(f"[launcher] training -> {out_dir}")
-    run_training(train_list, val_list, out_dir, ns)
+    run_training(train_list, val_list, out_dir, ns, group)
     return 0
 
 

@@ -58,8 +58,13 @@ serves the ConvNeXt classifier: the model is built by
 request, as the JAX runner loads them; an ``amp`` checkpoint runs in bf16;
 a request's channel count must be the stem's (else 400); the segment and
 recon routes answer 404, as the other tasks' answer 404 for
-``/v1/classify``; ``/metricsz`` counts requests and slices. Refused:
-``--data-parallel`` above 1 (ROADMAP.md Queue 1 item 7).
+``/v1/classify``; ``/metricsz`` counts requests and slices.
+``--data-parallel N`` (JAX :172-181, :475-508) splits each segmentation
+batch over ``N`` model replicas of this process, on ``cuda:0`` ..
+``cuda:N-1`` (``--device cpu``: ``N`` CPU replicas) through
+``cli/infer.py``'s replicas; the micro-batcher stays one thread, and the
+k-space preprocessing runs on the first device. Recon and classify serve on
+one device, and refuse it.
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.serve \\
@@ -98,7 +103,8 @@ from ..train.checkpoint import load_best
 from ..train.varnet_trainer import build_varnet_from_args, combine_directions
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
-from .infer import load_model_from_ckpt, model_apply_fn
+from ..parallel.mesh import mesh_devices
+from .infer import load_model_from_ckpt, model_replicas, qtree_replicas
 
 
 class _MicroBatcher:
@@ -436,10 +442,14 @@ def _build_runner(args):
     ``--task classify``; else the segmentation runner of ``--qtree`` when
     given, else of ``--ckpt``."""
     device = resolve_device(getattr(args, "device", "cuda"))
-    if int(getattr(args, "data_parallel", 1) or 1) != 1:
-        raise ValueError(f"--data-parallel {args.data_parallel}: multi-"
-                         "device serving is not ported (ROADMAP.md Queue 1 "
-                         "item 7)")
+    n_dev = int(getattr(args, "data_parallel", 1) or 1)
+    if n_dev != 1 and getattr(args, "task", "segment") != "segment":
+        raise ValueError(f"--data-parallel {n_dev} splits segmentation "
+                         f"batches; --task {args.task} serves on one device")
+    devices = [device]
+    if n_dev > 1:
+        devices = mesh_devices(n_dev, str(device))
+        device = devices[0]
     if getattr(args, "task", "segment") == "recon":
         if not getattr(args, "ckpt", None):
             raise ValueError("--task recon requires --ckpt "
@@ -453,16 +463,16 @@ def _build_runner(args):
     if getattr(args, "qtree", None):
         from .quantize import load_engine
         eng, qtree, meta = load_engine(args.qtree, device)
-        norm = make_input_norm(bool(meta.get("imagenet_norm")))
-
-        def apply_fn(x):
-            return eng.apply(qtree, norm(x))
+        apply_fn = qtree_replicas(
+            eng, qtree, make_input_norm(bool(meta.get("imagenet_norm"))),
+            devices)
         k, classes, source = int(meta["k"]), int(meta["classes"]), "qtree"
         dtype = eng.config.compute_dtype
     else:
         model, margs = load_model_from_ckpt(args.ckpt, device)
-        apply_fn = model_apply_fn(
-            model, make_input_norm(bool(margs.get("imagenet_norm"))))
+        apply_fn = model_replicas(
+            model, make_input_norm(bool(margs.get("imagenet_norm"))),
+            devices)
         k, classes = int(margs.get("k", 1)), int(margs.get("classes", 1))
         source, dtype = "ckpt", model.compute_dtype
 
@@ -632,8 +642,9 @@ def main(argv=None) -> int:
     p.add_argument("--qtree", help="quantized artifact from cli.quantize "
                                    "(serves without the checkpoint)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard each batch over; only 1 is "
-                        "ported")
+                   help="model replicas to split each segmentation batch "
+                        "over, one card each (CPU replicas with --device "
+                        "cpu)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--batch-size", type=int, default=16)
@@ -652,9 +663,11 @@ def main(argv=None) -> int:
                         "window into one run of batches (0 = off; try 5 "
                         "under concurrent load)")
     args = p.parse_args(argv)
-    if args.data_parallel != 1:
-        p.error(f"--data-parallel {args.data_parallel}: multi-device "
-                "serving is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.data_parallel < 1 or (args.data_parallel > 1
+                                  and args.task != "segment"):
+        p.error(f"--data-parallel {args.data_parallel}: segmentation is "
+                "served on one or more replicas; --task recon and classify "
+                "on one device")
     if args.task in ("recon", "classify") and (args.qtree or not args.ckpt):
         p.error(f"--task {args.task} serves a --ckpt (a "
                 f"{'varnet' if args.task == 'recon' else 'classifier'}"

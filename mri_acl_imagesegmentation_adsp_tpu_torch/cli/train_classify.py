@@ -12,8 +12,10 @@ checkpoint's loss and AUC on the test split go to ``test_metrics.json``;
 ``--evaluate CKPT`` reports them without training. Plus ``--device``
 (default ``cuda``). The datasheet datasets need h5py and pandas, and a YAML
 needs PyYAML; without them the CLI raises an ImportError that names the
-module. ``--data-parallel`` above 1 is refused (ROADMAP.md Queue 1 item
-7).
+module. ``--data-parallel N`` trains on ``N`` ranks that this process
+spawns (``parallel.spawn``; ``cuda:0`` .. ``cuda:N-1``, or CPU ranks with
+``--device cpu``), rank 0 writing the run directory; this process prints
+rank 0's result.
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.train_classify \\
       --mode dwi --config-file diffusion_final.yaml [--device cuda]
@@ -25,10 +27,12 @@ import argparse
 import json
 import os
 import shutil
+import sys
 from typing import Optional
 
 from ..classify.dataset import DWISliceDataset, T2SliceDataset
 from ..classify.trainer import ClassifierArgs, ClassifierTrainer
+from ..parallel.mesh import DataGroup, mesh_devices, spawn
 
 
 def _seed_for_index(index: int) -> int:
@@ -135,8 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-amp", dest="amp", action="store_false")
     p.set_defaults(amp=True)
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard each batch over; only 1 is "
-                        "ported")
+                   help="ranks to shard each batch over, one card each "
+                        "(CPU ranks with --device cpu)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest snapshot in out-dir")
     p.add_argument("--save-resume-every", type=int, default=0,
@@ -155,12 +159,32 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = build_parser()
     args = p.parse_args(argv)
-    if args.data_parallel != 1:
-        p.error(f"--data-parallel {args.data_parallel}: multi-device "
-                "training is not ported (ROADMAP.md Queue 1 item 7)")
+    if args.data_parallel < 1:
+        p.error(f"--data-parallel {args.data_parallel} is below 1")
+    if args.data_parallel > 1:
+        devices = mesh_devices(args.data_parallel, args.device)
+        result = spawn(_rank_main, args.data_parallel, devices,
+                       args=(argv,), timeout_s=1e6)[0]
+    else:
+        result = _run(p, args, None)
+    print(json.dumps(result))
+    return 0
 
+
+def _rank_main(group: DataGroup, argv: list) -> Optional[dict]:
+    """One spawned rank of ``--data-parallel``."""
+    p = build_parser()
+    return _run(p, p.parse_args(argv), group)
+
+
+def _run(p: argparse.ArgumentParser, args: argparse.Namespace,
+         group: Optional[DataGroup]) -> Optional[dict]:
+    """Train (or ``--evaluate``) on this process or on ``group``'s rank;
+    returns what the CLI prints (None on the ranks after the first)."""
+    primary = group is None or group.primary
     seed = (args.seed if args.index_seed is None
             else _seed_for_index(args.index_seed))
     if args.config_file:
@@ -177,6 +201,7 @@ def main(argv: Optional[list] = None) -> int:
                             else 32)
         cargs.amp = args.amp
         cargs.resume_keep = args.resume_keep
+        cargs.data_parallel = args.data_parallel
     else:
         cargs = ClassifierArgs(
             out_dir=args.out_dir, model=args.model, diff=(args.mode == "dwi"),
@@ -186,7 +211,7 @@ def main(argv: Optional[list] = None) -> int:
             epochs=args.epochs,
             batch_size=args.batch_size if args.batch_size is not None else 8,
             patience=args.patience, seed=seed, amp=args.amp,
-            resume_keep=args.resume_keep)
+            resume_keep=args.resume_keep, data_parallel=args.data_parallel)
         datasheet, datapath = args.datasheet, args.data_path
         norm_type, augment = args.norm_type, args.augment
     if not datasheet or not datapath:
@@ -195,15 +220,16 @@ def main(argv: Optional[list] = None) -> int:
 
     train_ds, val_ds, test_ds = _make_datasets(
         args.mode, datasheet, datapath, norm_type, augment)
-    trainer = ClassifierTrainer(cargs, train_ds, val_ds, device=args.device)
+    trainer = ClassifierTrainer(cargs, train_ds, val_ds, device=args.device,
+                                group=group)
 
     if args.evaluate:
         metrics = trainer.evaluate(test_ds, ckpt_path=args.evaluate)
-        print(json.dumps({"mode": args.mode, "split": "test", **metrics}))
-        return 0
+        return ({"mode": args.mode, "split": "test", **metrics} if primary
+                else None)
 
     os.makedirs(cargs.out_dir, exist_ok=True)
-    if args.config_file:
+    if args.config_file and primary:
         # vendored behavior: the exact config rides with the run artifacts
         shutil.copyfile(args.config_file,
                         os.path.join(cargs.out_dir, "params.txt"))
@@ -211,13 +237,13 @@ def main(argv: Optional[list] = None) -> int:
                          save_resume_every=args.save_resume_every,
                          preempt_save=args.preempt_save)
     test_metrics = trainer.evaluate(test_ds, ckpt_path=result["best_ckpt"])
+    if not primary:
+        return None
     with open(os.path.join(cargs.out_dir, "test_metrics.json"), "w",
               encoding="utf-8") as f:
         json.dump(test_metrics, f, indent=2)
-    print(json.dumps({"best_ckpt": result["best_ckpt"],
-                      "epochs_ran": len(result["history"]),
-                      "test": test_metrics}))
-    return 0
+    return {"best_ckpt": result["best_ckpt"],
+            "epochs_ran": len(result["history"]), "test": test_metrics}
 
 
 if __name__ == "__main__":

@@ -12,20 +12,32 @@ table, edge-clamped inside each volume.
 Volumes are read through the native C++ npz loader (``native/loader.py``):
 one call a volume, or with ``workers`` all of them on its C++ thread pool;
 ``np.load`` reads a volume the native loader cannot (no ``g++``, an
-unusual member). The store sharded over several devices is not ported
-yet.
+unusual member).
+
+Sharded (``to_device(..., group=, shard=True)``, JAX
+``hbm_loader.py:134-175``): each rank of a data-parallel group holds
+``1/world`` of the rows, the store padded with repeats of its last slice
+to a multiple of the world (padding rows are never indexed: permutations
+draw from ``[0, N)``). A batch indexes the global rows, so a rank's rows
+may live on another rank: :func:`gather_batch` then has every rank fill
+the rows it owns into a zeroed global batch, and one all-reduce sums
+them, which is exact (one owner a row). Every rank must gather the same
+rows together. The neighbour table, a few bytes a slice, stays whole on
+every rank.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..models.norm import at_least_f32
 from ..native import load_volume_npz, load_volumes_npz
+from ..parallel.mesh import DataGroup, all_reduce_
 
 
 def read_list(txt_path: str) -> List[str]:
@@ -108,18 +120,36 @@ class SliceStore:
                         axis=1).astype(np.int32)
 
     def to_device(self, k: int = 1, image_dtype: torch.dtype = torch.float32,
-                  device: str | torch.device = "cuda") -> "DeviceSliceStore":
+                  device: str | torch.device = "cuda",
+                  group: Optional[DataGroup] = None,
+                  shard: bool = False) -> "DeviceSliceStore":
         """Copy the store and its neighbour table for ``k`` to ``device``.
-        Masks go as uint8 when every label is below 256, else int32."""
+        Masks go as uint8 when every label is below 256, else int32. With
+        ``group`` and ``shard`` only this rank's rows of the padded store
+        go (module docstring)."""
         mask_dtype = (torch.uint8 if np.max(self.masks, initial=0) < 256
                       else torch.int32)
+        images, masks, row0 = self.images, self.masks, 0
+        if group is not None and shard:
+            pad = (-len(self)) % group.world
+            if pad:
+                images = np.concatenate([images, images[-1:].repeat(pad, 0)])
+                masks = np.concatenate([masks, masks[-1:].repeat(pad, 0)])
+            share = images.shape[0] // group.world
+            row0 = group.rank * share
+            images = images[row0:row0 + share]
+            masks = masks[row0:row0 + share]
         return DeviceSliceStore(
-            images=torch.from_numpy(self.images).to(device, image_dtype),
-            masks=torch.from_numpy(self.masks).to(device, mask_dtype),
+            images=torch.from_numpy(np.ascontiguousarray(images)).to(
+                device, image_dtype),
+            masks=torch.from_numpy(np.ascontiguousarray(masks)).to(
+                device, mask_dtype),
             neighbors=torch.from_numpy(
                 self.neighbor_table(k).astype(np.int64)).to(device),
             k=k,
             num_slices=len(self),
+            group=group if shard else None,
+            row0=row0,
         )
 
 
@@ -131,16 +161,45 @@ class DeviceSliceStore:
     neighbors: torch.Tensor   # (N, k) int64
     k: int
     num_slices: int
+    group: Optional[DataGroup] = None   # set when the rows are sharded
+    row0: int = 0                       # the first global row held here
+
+    @property
+    def sharded(self) -> bool:
+        return self.group is not None
 
 
 def gather_batch(store: DeviceSliceStore, idx: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows ``idx`` ``(B,)`` -> ``x`` ``(B, k, H, W)`` float32 (channels are
-    the neighbour slices) and ``y`` ``(B, H, W)``, the centre slice's mask."""
+    """Rows ``idx`` ``(B,)`` -> ``x`` ``(B, k, H, W)`` float32 (float64 from a
+    float64 store; channels are
+    the neighbour slices) and ``y`` ``(B, H, W)``, the centre slice's mask.
+    From a sharded store every rank gets the whole batch (a collective)."""
     nbr = store.neighbors.index_select(0, idx)                 # (B, k)
+    if store.sharded:
+        return _gather_sharded(store, idx, nbr)
     x = store.images.index_select(0, nbr.reshape(-1))
     x = x.reshape(nbr.shape + store.images.shape[1:])
-    return x.float(), store.masks.index_select(0, idx)
+    return at_least_f32(x), store.masks.index_select(0, idx)
+
+
+def _gather_sharded(store: DeviceSliceStore, idx: torch.Tensor,
+                    nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each rank writes the rows it holds into a zeroed ``(B, k + 1, H,
+    W)`` f32 (or float64) buffer (the image channels, then the mask) and
+    one all-reduce sums the ranks' buffers."""
+    held = store.images.shape[0]
+    rows = torch.cat([nbr, idx[:, None]], dim=1) - store.row0  # (B, k + 1)
+    mine = (rows >= 0) & (rows < held)
+    at = rows.clamp(0, held - 1)
+    b, k = nbr.shape
+    x = at_least_f32(store.images.index_select(0, at[:, :k].reshape(-1))
+                     .reshape((b, k) + store.images.shape[1:]))
+    y = store.masks.index_select(0, at[:, k]).to(x.dtype)[:, None]
+    buf = torch.where(mine[..., None, None], torch.cat([x, y], dim=1),
+                      torch.zeros((), device=x.device))
+    all_reduce_(buf, store.group)
+    return buf[:, :k], buf[:, k].to(store.masks.dtype)
 
 
 def epoch_permutation(generator: torch.Generator, num_slices: int,

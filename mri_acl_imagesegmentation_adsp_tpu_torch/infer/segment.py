@@ -10,12 +10,20 @@ XLA compiles; here a plain loop over batches runs under
 ``torch.inference_mode()``. ``apply_fn`` maps an NCHW batch to NCHW logits;
 volumes are ``(S, H, W)`` or ``(S, 1, H, W)`` tensors and results stay on
 their device.
+
+Data-parallel inference (JAX ``segment.py:176-191``, a batch sharded over a
+mesh): :class:`ReplicatedApply` holds one ``apply_fn`` a device (a model
+replica each) in this process. Given one, the batch rounds up to a
+multiple of the device count and the stacked slices pad with repeats of
+the last to whole batches (dropped from the result); each batch splits
+into equal chunks, each runs on its device, and the logits gather on the
+first device.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +34,43 @@ from ..train.metrics import dice_bin, iou_bin
 # slices per exact-EDT call: each materializes (N, H, W, W) float32, 1.05 GB
 # for 8 slices at 320^2
 SURFACE_CHUNK = 8
+
+
+class ReplicatedApply:
+    """``apply_fns[i]`` runs on ``devices[i]``: a batch is cut into
+    ``len(devices)`` equal chunks, chunk ``i`` goes to device ``i``, and
+    the chunks' logits are concatenated on ``devices[0]``. Launches on
+    distinct cards overlap, each card's queue running ahead of the host."""
+
+    def __init__(self, apply_fns: Sequence[Callable],
+                 devices: Sequence[torch.device]):
+        if len(apply_fns) != len(devices) or not devices:
+            raise ValueError("one apply_fn a device")
+        self.apply_fns = list(apply_fns)
+        self.devices = [torch.device(d) for d in devices]
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.n_devices:
+            raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                             f"{self.n_devices} devices")
+        outs = [fn(c.to(d, non_blocking=True)) for fn, c, d in zip(
+            self.apply_fns, x.chunk(self.n_devices), self.devices)]
+        return torch.cat([o.to(self.devices[0]) for o in outs])
+
+
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """A nested dict / list of tensors (a quantized tree) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree
 
 
 def _neighbor_stack(vol: torch.Tensor, k: int) -> torch.Tensor:
@@ -67,7 +112,7 @@ def tta_wrap(apply_fn: Callable, classes: int, tta: str) -> Callable:
     activation's inverse, so that the sigmoid or softmax downstream yields
     the mean exactly: ``logit(clip(mean sigmoid, 1e-7, 1 - 1e-7))`` for one
     class, ``log(clip(mean softmax, 1e-30))`` otherwise. ``"none"`` returns
-    ``apply_fn`` itself."""
+    ``apply_fn`` itself. The wrapper keeps ``apply_fn``'s device count."""
     if tta in (None, "none"):
         return apply_fn
     if tta != "hflip":
@@ -83,6 +128,7 @@ def tta_wrap(apply_fn: Callable, classes: int, tta: str) -> Callable:
         pa = 0.5 * (torch.softmax(logits, dim=1)
                     + torch.softmax(flipped, dim=1))
         return torch.log(torch.clamp(pa, min=1e-30))
+    tta_fn.n_devices = getattr(apply_fn, "n_devices", 1)
     return tta_fn
 
 
@@ -105,15 +151,24 @@ def segment_volumes_2d(apply_fn: Callable, volumes: Sequence[torch.Tensor],
 
     Returns ``(S_i, C, H, W)`` probabilities per volume, or with
     ``masks_only_threshold`` set, ``(S_i, H, W)`` uint8 masks thresholded on
-    the device by :func:`threshold_probs`. ``tta`` is :func:`tta_wrap`'s."""
+    the device by :func:`threshold_probs`. ``tta`` is :func:`tta_wrap`'s.
+    A :class:`ReplicatedApply` (or its TTA wrapper) splits each batch over
+    its devices (module docstring)."""
     if not volumes:
         return []
+    n_dev = getattr(apply_fn, "n_devices", 1)
     apply_fn = tta_wrap(apply_fn, classes, tta)
     vols = [_as_slices(v, k) for v in volumes]
     if any(v.shape[1:] != vols[0].shape[1:] for v in vols):
         raise ValueError("volumes must share (H, W); got "
                          f"{[tuple(v.shape) for v in vols]}")
     x = torch.cat([_neighbor_stack(v, k) for v in vols])
+    s = x.shape[0]
+    if n_dev > 1:
+        batch_size = -(-min(batch_size, s) // n_dev) * n_dev
+        pad = (-s) % batch_size
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
 
     def head(logits):
         probs = (torch.sigmoid(logits) if classes == 1
@@ -122,7 +177,7 @@ def segment_volumes_2d(apply_fn: Callable, volumes: Sequence[torch.Tensor],
             return probs
         return threshold_probs(probs, classes, masks_only_threshold)
     out = torch.cat([head(apply_fn(x[i:i + batch_size]))
-                     for i in range(0, x.shape[0], batch_size)])
+                     for i in range(0, x.shape[0], batch_size)])[:s]
     return list(torch.split(out, [v.shape[0] for v in vols]))
 
 

@@ -17,7 +17,12 @@ biased one. Here, in train mode:
   ``0.9 * running + 0.1 * batch``, mean and var alike;
 * the statistics and affine fold into per-channel ``a = weight *
   rsqrt(var + eps)``, ``b = bias - mean * a`` (f32), and ``y = x * a + b``
-  runs in the input's dtype, with the ``a`` / ``b`` gradients summed in f32.
+  runs in the input's dtype, with the ``a`` / ``b`` gradients summed in f32;
+* under :func:`synced` (data parallelism) the statistics are the global
+  batch's: each rank's f32 ``sum x``, ``sum x^2`` and count are summed over
+  the ranks by one differentiable all-reduce before the ratio, as XLA sums
+  a sharded batch's mean in the JAX engine, so every rank normalizes, and
+  moves its running statistics, as one rank holding the whole batch would.
 
 The module subclasses ``nn.BatchNorm2d`` for its parameters, buffers and
 state_dict keys (``weight``, ``bias``, ``running_mean``, ``running_var``,
@@ -49,6 +54,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.mesh import all_reduce_sum
 
 # set on the thread that recomputes a remat block in the backward pass
 _RECOMPUTE = threading.local()
@@ -84,6 +91,12 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or kept in float64 (a float64 model's inputs, logits
+    and losses stay float64 end to end)."""
+    return x.to(_acc_dtype(x))
+
+
 class _ScaleShift(torch.autograd.Function):
     """``y = x * a + b`` over the channel axis of NCHW ``x``, in x.dtype;
     the (C,) gradients are sums of products in at least f32."""
@@ -111,12 +124,22 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1 - FLAX_MOMENTUM)
+        self.group = None       # a DataGroup while ``synced``
+
+    def _batch_moments(self, xf: torch.Tensor):
+        """``E[x]`` and ``E[x^2]`` per channel, over the global batch when
+        a group is set."""
+        if self.group is None:
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        c = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+            xf.new_full((1,), xf.numel() // c)]), self.group)
+        return sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.to(_acc_dtype(x))
-            mean = xf.mean(dim=(0, 2, 3))
-            mu2 = (xf * xf).mean(dim=(0, 2, 3))
+            mean, mu2 = self._batch_moments(x.to(_acc_dtype(x)))
             var = torch.maximum(mu2 - mean * mean, torch.zeros_like(mean))
             # a remat recompute leaves them as the forward pass moved them
             if not getattr(_RECOMPUTE, "on", False):
@@ -132,6 +155,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
         return _ScaleShift.apply(x, a, b)
+
+
+@contextmanager
+def synced(model: nn.Module, group) -> Iterator[None]:
+    """Inside the block, the train-mode statistics of ``model``'s
+    :class:`BatchNorm2d` layers are the group's global batch's (``group``
+    None: each rank's own)."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.group = None
 
 
 class InstanceNorm(nn.Module):

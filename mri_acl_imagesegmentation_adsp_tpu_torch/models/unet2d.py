@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import BatchNorm2d, remat
+from .norm import BatchNorm2d, at_least_f32, remat
 
 # ResNet stage definitions: name -> (blocks per stage, bottleneck?)
 RESNET_CFG = {
@@ -195,12 +195,12 @@ class ResNetEncoderUNet(nn.Module):
         self.head = nn.Conv2d(cin, classes, 3, padding=1, bias=True)
 
     def forward(self, x):
-        feats = self.encoder(x.float())
+        feats = self.encoder(at_least_f32(x))
         skips = [feats[4], feats[3], feats[2], feats[1], None]
         y = feats[5]
         for block, skip in zip(self.decoder, skips):
             y = remat(self.remat, block, y, skip)
-        return self.head(y).float()
+        return at_least_f32(self.head(y))
 
 
 class UNetPlusPlus(nn.Module):
@@ -244,14 +244,14 @@ class UNetPlusPlus(nn.Module):
                 for i in range(cls.DEPTH + 1 - j)]
 
     def forward(self, x):
-        feats = self.encoder(x.float())
+        feats = self.encoder(at_least_f32(x))
         grid = {(i, 0): f for i, f in enumerate(feats[1:])}
         for j, i in self.node_order():
             priors = [grid[(i, m)] for m in range(j)]
             grid[(i, j)] = self.nodes[f"x_{i}_{j}"](
                 torch.cat(priors + [_up2(grid[(i + 1, j - 1)])], dim=1))
         y = self.tail(_up2(grid[(0, self.DEPTH)]))
-        return self.head(y).float()
+        return at_least_f32(self.head(y))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,4 +1,5 @@
-"""Segmentation losses, computed in f32 whatever the logits' dtype.
+"""Segmentation losses, computed in f32 whatever the logits' dtype (float64
+logits keep float64).
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/losses.py:25-244``:
 the binary losses (:29-103), the multiclass losses (:106-131), the 3-D
@@ -10,6 +11,13 @@ W)`` labels.
 
 ``max(x, 0)`` is ``torch.maximum`` against zeros, whose gradient at a tie
 splits in half as ``jnp.maximum``'s does (``clamp`` would give it whole).
+
+Under data parallelism (``group``, a ``parallel.DataGroup``) the
+batch-global sums of the Dice and Tversky losses are summed over the ranks
+by one differentiable all-reduce before their ratio, so each rank's loss
+holds the global batch's Dice term; the means (BCE, CE, focal) stay each
+rank's mean of its equal share, whose mean over the ranks is the global
+mean.
 """
 
 from __future__ import annotations
@@ -18,6 +26,9 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from ..models.norm import at_least_f32 as _f
+from ..parallel.mesh import all_reduce_sum
 
 
 def _bce_terms(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -28,31 +39,33 @@ def _bce_terms(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def _present_dice(p: torch.Tensor, t: torch.Tensor, smooth: float,
-                  eps: float) -> torch.Tensor:
+                  eps: float, group=None) -> torch.Tensor:
     """Batch-global soft Dice loss per class of ``(N, C, L)`` probabilities
     and targets; a class absent from the target counts zero; mean over
     classes."""
     dims = (0, 2)
-    inter = torch.sum(p * t, dim=dims)
-    card = torch.sum(p + t, dim=dims)
+    inter, card, tsum = all_reduce_sum(torch.stack([
+        torch.sum(p * t, dim=dims), torch.sum(p + t, dim=dims),
+        torch.sum(t, dim=dims)]), group)
     score = (2.0 * inter + smooth) / torch.clamp_min(card + smooth, eps)
-    present = (torch.sum(t, dim=dims) > 0).to(score.dtype)
+    present = (tsum > 0).to(score.dtype)
     return torch.mean((1.0 - score) * present)
 
 
 def dice_loss_binary(logits: torch.Tensor, targets: torch.Tensor,
-                     smooth: float = 0.0, eps: float = 1e-7) -> torch.Tensor:
+                     smooth: float = 0.0, eps: float = 1e-7,
+                     group=None) -> torch.Tensor:
     """smp ``DiceLoss(mode="binary", from_logits=True)``."""
     n = logits.shape[0]
-    p = torch.sigmoid(logits.float()).reshape(n, 1, -1)
-    t = targets.float().reshape(n, 1, -1)
-    return _present_dice(p, t, smooth, eps)
+    p = torch.sigmoid(_f(logits)).reshape(n, 1, -1)
+    t = targets.to(p.dtype).reshape(n, 1, -1)
+    return _present_dice(p, t, smooth, eps, group)
 
 
 def soft_bce_loss(logits: torch.Tensor, targets: torch.Tensor
                   ) -> torch.Tensor:
     """BCE with logits, mean reduction (smp ``SoftBCEWithLogitsLoss``)."""
-    return torch.mean(_bce_terms(logits.float(), targets.float()))
+    return torch.mean(_bce_terms(_f(logits), targets.float()))
 
 
 def focal_loss_binary(logits: torch.Tensor, targets: torch.Tensor,
@@ -70,23 +83,24 @@ def focal_loss_binary(logits: torch.Tensor, targets: torch.Tensor,
 
 def tversky_loss(logits: torch.Tensor, targets: torch.Tensor,
                  alpha: float = 0.7, beta: float = 0.3,
-                 eps: float = 1e-7) -> torch.Tensor:
+                 eps: float = 1e-7, group=None) -> torch.Tensor:
     """Tversky loss over dims (0, 2, 3), mean over classes."""
-    p = torch.sigmoid(logits.float())
-    t = targets.float()
+    p = torch.sigmoid(_f(logits))
+    t = targets.to(p.dtype)
     dims = (0, 2, 3)
-    tp = torch.sum(p * t, dim=dims)
-    fp = torch.sum(p * (1.0 - t), dim=dims)
-    fn = torch.sum((1.0 - p) * t, dim=dims)
+    tp, fp, fn = all_reduce_sum(torch.stack([
+        torch.sum(p * t, dim=dims), torch.sum(p * (1.0 - t), dim=dims),
+        torch.sum((1.0 - p) * t, dim=dims)]), group)
     tv = (tp + eps) / (tp + alpha * fp + beta * fn + eps)
     return 1.0 - torch.mean(tv)
 
 
 def focal_tversky_loss(logits: torch.Tensor, targets: torch.Tensor,
                        alpha: float = 0.7, beta: float = 0.3,
-                       gamma: float = 0.75) -> torch.Tensor:
+                       gamma: float = 0.75, group=None) -> torch.Tensor:
     """``tversky_loss ** gamma``."""
-    return torch.pow(tversky_loss(logits, targets, alpha, beta), gamma)
+    return torch.pow(tversky_loss(logits, targets, alpha, beta,
+                                  group=group), gamma)
 
 
 def _one_hot(targets: torch.Tensor, c: int) -> torch.Tensor:
@@ -98,20 +112,21 @@ def _one_hot(targets: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def dice_loss_multiclass(logits: torch.Tensor, targets: torch.Tensor,
-                         smooth: float = 0.0,
-                         eps: float = 1e-7) -> torch.Tensor:
+                         smooth: float = 0.0, eps: float = 1e-7,
+                         group=None) -> torch.Tensor:
     """smp ``DiceLoss(mode="multiclass")``: softmax probabilities, one-hot
     targets."""
     n, c = logits.shape[0], logits.shape[1]
-    p = torch.softmax(logits.float(), dim=1).reshape(n, c, -1)
-    return _present_dice(p, _one_hot(targets, c), smooth, eps)
+    p = torch.softmax(_f(logits), dim=1).reshape(n, c, -1)
+    return _present_dice(p, _one_hot(targets, c).to(p.dtype), smooth, eps,
+                         group)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
                        ) -> torch.Tensor:
     """``nn.CrossEntropyLoss`` over ``(N, C, H, W)`` logits and ``(N, H, W)``
     labels, mean reduction."""
-    logp = torch.log_softmax(logits.float(), dim=1)
+    logp = torch.log_softmax(_f(logits), dim=1)
     nll = -torch.gather(logp, 1, targets.long()[:, None])
     return torch.mean(nll)
 
@@ -195,23 +210,26 @@ class LossManager:
             tversky_gamma=cfg.get("tversky_gamma", 0.75),
         )
 
-    def __call__(self, logits: torch.Tensor,
-                 targets: torch.Tensor) -> torch.Tensor:
+    def __call__(self, logits: torch.Tensor, targets: torch.Tensor,
+                 group=None) -> torch.Tensor:
+        """The loss of a batch, or with ``group`` of this rank's share of
+        a data-parallel global batch (module docstring)."""
         w0, w1 = float(self.weights[0]), float(self.weights[1])
         kind = self._kind
         if kind == "dice_bce":
-            return (w0 * dice_loss_binary(logits, targets)
+            return (w0 * dice_loss_binary(logits, targets, group=group)
                     + w1 * soft_bce_loss(logits, targets))
         if kind == "focal":
             return focal_loss_binary(logits, targets, self.focal_alpha,
                                      self.focal_gamma)
         if kind == "tversky":
             return tversky_loss(logits, targets, self.tversky_alpha,
-                                self.tversky_beta)
+                                self.tversky_beta, group=group)
         if kind == "focal_tversky":
             return focal_tversky_loss(logits, targets, self.tversky_alpha,
-                                      self.tversky_beta, self.tversky_gamma)
+                                      self.tversky_beta, self.tversky_gamma,
+                                      group=group)
         if kind == "dice_ce":
-            return (w0 * dice_loss_multiclass(logits, targets)
+            return (w0 * dice_loss_multiclass(logits, targets, group=group)
                     + w1 * cross_entropy_loss(logits, targets))
         return cross_entropy_loss(logits, targets)

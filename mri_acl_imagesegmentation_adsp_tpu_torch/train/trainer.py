@@ -41,6 +41,17 @@ the history, which is all a continuation needs to be the uninterrupted
 run. ``device`` is an argument of the trainer, not a field of
 ``UNet2DArgs``. The JAX package's TPU extensions that have no port raise
 when set away from their defaults (``check_args``).
+
+Data parallelism (JAX :142-157): the trainer runs on each rank of a
+``parallel.DataGroup`` given as ``group`` (``cli/launcher.py`` spawns
+``data_parallel`` ranks; ``multihost`` joins the group torchrun
+describes), on that rank's device. Every rank draws the same permutations
+and augmentation, steps through ``train/engine.py``'s data-parallel step
+and validates on the global batches, so every rank holds the same weights
+and history; ``store_sharded`` keeps ``1/world`` of each store on a rank.
+The primary rank (0) alone writes the run directory, which is the one a
+single rank writes, and the others wait for it at each snapshot and at the
+end; a preemption asked of any rank stops them all at the same step.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from ..data.hbm_loader import SliceStore, epoch_permutation, gather_batch
 from ..models.factory import build_unet, validate_encoder_weights
 from ..models.torch_import import apply_encoder_weights
 from ..models.unet2d import init_weights
+from ..parallel.mesh import DataGroup, any_rank, barrier, env_group
 from ..utils.device import resolve_device
 from ..utils.imagenet import make_input_norm
 from . import checkpoint as ckpt_lib
@@ -121,31 +133,26 @@ class UNet2DArgs:
 
 
 # extensions the port does not have, with the default that keeps them off:
-# multi-host and sharded stores wait for the parallel port, and the orbax
-# backend with its async snapshots is a JAX library; "msgpack" names the
-# default snapshot format, which here is the port's own
-_NOT_PORTED = {
-    "multihost": False, "store_sharded": False,
-    "ckpt_async": False, "ckpt_backend": "msgpack",
-}
+# the orbax backend with its async snapshots is a JAX library; "msgpack"
+# names the default snapshot format, which here is the port's own
+_NOT_PORTED = {"ckpt_async": False, "ckpt_backend": "msgpack"}
 _COUNTS = ("save_resume_every", "save_resume_steps", "resume_keep",
            "profile_epochs")
 
 
 def check_args(args: UNet2DArgs) -> None:
     """Raise ``ValueError`` naming the flag of any setting the port cannot
-    run: the TPU extensions above away from their defaults,
-    ``data_parallel > 1``, a negative snapshot or profile count, an
+    run: the TPU extensions above away from their defaults, a
+    ``data_parallel`` below 1, a negative snapshot or profile count, an
     ``encoder_weights`` that is neither "none" nor a checkpoint file, and a
     store dtype other than float32 / bfloat16."""
     def refuse(name, value, why="is not ported"):
-        raise ValueError(f"--{name.replace('_', '-')} {value!r} {why}; the "
-                         "port trains on one device")
+        raise ValueError(f"--{name.replace('_', '-')} {value!r} {why}")
     for name, default in _NOT_PORTED.items():
         if getattr(args, name) != default:
             refuse(name, getattr(args, name))
-    if args.data_parallel > 1:
-        refuse("data_parallel", args.data_parallel)
+    if args.data_parallel < 1:
+        refuse("data_parallel", args.data_parallel, "is below 1")
     for name in _COUNTS:
         if getattr(args, name) < 0:
             refuse(name, getattr(args, name), "is negative")
@@ -179,24 +186,52 @@ def _preempt_signals(enabled: bool, callback):
             signal.signal(sig, handler)
 
 
+def _rank_group(args: UNet2DArgs, device: torch.device,
+                group: Optional[DataGroup]) -> Optional[DataGroup]:
+    """The data-parallel group a run trains on: ``group`` (its world must
+    be ``data_parallel``), torchrun's under ``multihost``, else none; a
+    ``data_parallel`` above 1 without a group raises."""
+    if group is None and args.multihost:
+        group = env_group(device.type)
+    if group is None:
+        if args.data_parallel > 1:
+            raise ValueError(
+                f"--data-parallel {args.data_parallel} trains on that many "
+                "ranks: start them with cli.launcher (or parallel.spawn, "
+                "passing each rank's group)")
+        return None
+    if not args.multihost and group.world != args.data_parallel:
+        raise ValueError(f"--data-parallel {args.data_parallel} on a group "
+                         f"of {group.world} ranks")
+    return group
+
+
 class UNet2DTrainer:
     """``UNet2DTrainer(args, device).run()`` trains and writes the run
-    directory ``args.out_dir``."""
+    directory ``args.out_dir``; with ``group``, one rank of a
+    data-parallel run on ``group.device``."""
 
     def __init__(self, args: UNet2DArgs,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 group: Optional[DataGroup] = None):
         check_args(args)
         self.args = args
-        self.device = resolve_device(device)
+        self.group = _rank_group(args, resolve_device(device), group)
+        self.device = (self.group.device if self.group is not None
+                       else resolve_device(device))
+        self.primary = self.group is None or self.group.primary
         self.out_dir = Path(args.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
-        with (self.out_dir / "args.json").open("w", encoding="utf-8") as f:
-            json.dump(asdict(args), f, indent=2)
+        if self.primary:
+            with (self.out_dir / "args.json").open("w",
+                                                   encoding="utf-8") as f:
+                json.dump(asdict(args), f, indent=2)
 
         self._build_stores()
         self._build_engine()
 
-        self.logger = make_logger(args.logger, str(self.out_dir))
+        self.logger = make_logger(args.logger if self.primary else "noop",
+                                  str(self.out_dir))
         self.best_metric = float("-inf")
         self.best_ckpt_path = self.out_dir / "best.ckpt"
         self.best_snapshot: Dict[str, Any] = {}
@@ -218,8 +253,10 @@ class UNet2DTrainer:
         dt = torch.bfloat16 if a.store_dtype == "bfloat16" else torch.float32
         train_src = SliceStore.from_list(a.train_list, workers=a.workers)
         val_src = SliceStore.from_list(a.val_list, workers=a.workers)
-        self.train_store = train_src.to_device(a.k, dt, self.device)
-        self.val_store = val_src.to_device(a.k, dt, self.device)
+        self.train_store = train_src.to_device(
+            a.k, dt, self.device, group=self.group, shard=a.store_sharded)
+        self.val_store = val_src.to_device(
+            a.k, dt, self.device, group=self.group, shard=a.store_sharded)
 
     def _build_engine(self) -> None:
         a = self.args
@@ -243,7 +280,7 @@ class UNet2DTrainer:
             self.optimizer, classes=a.classes, aug=a.aug,
             input_transform=(make_input_norm(True) if a.imagenet_norm
                              else None),
-            accum_steps=a.accum_steps, amp=a.amp)
+            accum_steps=a.accum_steps, amp=a.amp, group=self.group)
         dev = self.device
         self.perm_gen = torch.Generator(device=dev).manual_seed(a.seed)
         self.aug_gen = torch.Generator(device=dev).manual_seed(a.seed + 1)
@@ -269,8 +306,11 @@ class UNet2DTrainer:
     def _save_resume(self, epoch: int) -> None:
         """The snapshot after ``epoch`` epochs."""
         self.start_epoch = epoch + 1
-        ckpt_lib.save_resume(str(self.out_dir), epoch, self._tensor_state(),
-                             self._host_state(), keep=self.args.resume_keep)
+        if self.primary:
+            ckpt_lib.save_resume(str(self.out_dir), epoch,
+                                 self._tensor_state(), self._host_state(),
+                                 keep=self.args.resume_keep)
+        barrier(self.group)
 
     def _save_mid_resume(self, epoch: int, steps_done: int,
                          perm: torch.Tensor, losses: np.ndarray) -> None:
@@ -284,8 +324,10 @@ class UNet2DTrainer:
         host["mid_epoch"] = {"epoch": int(epoch),
                              "steps_done": int(steps_done),
                              "losses": [float(v) for v in losses]}
-        ckpt_lib.save_resume(str(self.out_dir), epoch - 1, tensors, host,
-                             step=steps_done, keep=self.args.resume_keep)
+        if self.primary:
+            ckpt_lib.save_resume(str(self.out_dir), epoch - 1, tensors, host,
+                                 step=steps_done, keep=self.args.resume_keep)
+        barrier(self.group)
 
     def _try_resume(self) -> None:
         d = ckpt_lib.latest_resume_dir(str(self.out_dir))
@@ -340,14 +382,19 @@ class UNet2DTrainer:
             done += n
             if done < total:
                 self._save_mid_resume(ep, done, perm, np.concatenate(parts))
-                if self._preempt:
+                if any_rank(self._preempt, self.group):
+                    self._preempt = True
                     return np.concatenate(parts), True
         return (np.concatenate(parts) if parts
                 else np.zeros(0, np.float32)), False
 
     def _train_epoch_profiled(self, ep: int, perm: torch.Tensor):
         """The whole-epoch dispatch under ``torch.profiler`` (the device's
-        kernels too on a card), its trace in ``<out_dir>/profile``."""
+        kernels too on a card), its trace in ``<out_dir>/profile``; the
+        primary's alone under a group."""
+        if not self.primary:
+            return self.engine.train_steps(self.train_store, perm,
+                                           self.aug_gen)
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -363,8 +410,10 @@ class UNet2DTrainer:
         return losses_dev
 
     def _log_val_images(self, epoch: int) -> None:
-        """Validation probabilities to a sink that takes images (TB)."""
-        if not hasattr(self.logger, "log_images"):
+        """Validation probabilities to a sink that takes images (TB): the
+        primary's sinks decide, every rank gathers (the gather of a sharded
+        store is collective)."""
+        if not any_rank(hasattr(self.logger, "log_images"), self.group):
             return
         take = min(4, self.val_store.num_slices)
         x, _ = gather_batch(self.val_store, torch.arange(
@@ -390,6 +439,8 @@ class UNet2DTrainer:
             y = y.cpu().numpy()
             gts.append(y[:, None].astype(np.float32)
                        if self.args.classes == 1 else y)
+        if not self.primary:
+            return
         np.savez_compressed(self.out_dir / "val_preds.npz",
                             probs=np.concatenate(probs, 0),
                             gts=np.concatenate(gts, 0))
@@ -407,7 +458,9 @@ class UNet2DTrainer:
             dt = (torch.bfloat16 if a.store_dtype == "bfloat16"
                   else torch.float32)
             store = SliceStore.from_list(list_txt, workers=a.workers
-                                         ).to_device(a.k, dt, self.device)
+                                         ).to_device(a.k, dt, self.device,
+                                                     group=self.group,
+                                                     shard=a.store_sharded)
         _, dice, iou = self.engine.validate(store, max(1, a.batch_size // 2))
         return {"dice": dice, "iou": iou}
 
@@ -467,10 +520,11 @@ class UNet2DTrainer:
             self.scheduler.step(val_loss)
             lr = self.scheduler.lr
             elapsed = time.time() - t0
-            print(f"Epoch {ep:03d}/{a.epochs} | "
-                  f"train {train_loss:.4f} | val {val_loss:.4f} | "
-                  f"dice {val_dice:.4f} | iou {val_iou:.4f} | "
-                  f"lr {lr:.2e} | {elapsed:.1f}s")
+            if self.primary:
+                print(f"Epoch {ep:03d}/{a.epochs} | "
+                      f"train {train_loss:.4f} | val {val_loss:.4f} | "
+                      f"dice {val_dice:.4f} | iou {val_iou:.4f} | "
+                      f"lr {lr:.2e} | {elapsed:.1f}s")
             self.logger.log_epoch(
                 epoch=ep, time_s=elapsed, train_loss=train_loss,
                 val_loss=val_loss, val_dice=val_dice, val_iou=val_iou, lr=lr)
@@ -483,8 +537,9 @@ class UNet2DTrainer:
             if metric_key > self.best_metric:
                 self.best_metric = metric_key
                 self.best_snapshot = dict(record)
-                ckpt_lib.save_best(str(self.best_ckpt_path),
-                                   self.model.state_dict(), asdict(a))
+                if self.primary:
+                    ckpt_lib.save_best(str(self.best_ckpt_path),
+                                       self.model.state_dict(), asdict(a))
                 if a.save_val_probs:
                     self._save_val_probs()
 
@@ -492,6 +547,7 @@ class UNet2DTrainer:
                 self.engine.save_samples(self.val_store, str(self.out_dir),
                                          max_samples=6)
                 self._log_val_images(ep)
+            self._preempt = any_rank(self._preempt, self.group)
             if self._preempt or (a.save_resume_every
                                  and ep % a.save_resume_every == 0):
                 self._save_resume(ep)
@@ -508,10 +564,13 @@ class UNet2DTrainer:
         }
         if self._preempt:       # absent from a run that was not cut
             summary["preempted"] = True
-        with (self.out_dir / "history.json").open("w", encoding="utf-8") as f:
-            json.dump(self.history, f, indent=2)
-        with (self.out_dir / "summary.json").open("w", encoding="utf-8") as f:
-            json.dump(summary, f, indent=2)
+        if self.primary:
+            with (self.out_dir / "history.json").open(
+                    "w", encoding="utf-8") as f:
+                json.dump(self.history, f, indent=2)
+            with (self.out_dir / "summary.json").open(
+                    "w", encoding="utf-8") as f:
+                json.dump(summary, f, indent=2)
         self.logger.log_meta({
             "best_ckpt": str(self.best_ckpt_path),
             "epochs": a.epochs,
@@ -529,6 +588,8 @@ class UNet2DTrainer:
             "seed": a.seed,
         })
         self.logger.close()
-        print("Done. Best ckpt:", self.best_ckpt_path)
+        barrier(self.group)
+        if self.primary:
+            print("Done. Best ckpt:", self.best_ckpt_path)
         return {"best_ckpt": str(self.best_ckpt_path),
                 "history": self.history, "summary": summary}

@@ -29,11 +29,21 @@ reference's ``src/train/train_unet3d.py``.
   SIGTERM / SIGUSR1, and ``request_preempt()`` always, into a snapshot at
   the epoch's end and a clean stop.
 
+- ``data_parallel`` (JAX :150-163, :216-231): each rank of a
+  ``parallel.DataGroup`` (the CLI spawns them: ``--data-parallel N`` on
+  ``cuda:0`` .. ``cuda:N-1``, or CPU ranks with ``--device cpu``) draws the
+  same patch batches, runs its contiguous share of each batch's rows and
+  averages its gradients and loss with the others' in one all-reduce. The
+  InstanceNorm is per sample and DiceCE a mean of per-sample terms, so the
+  average of the ranks' losses is the global batch's. A batch the world
+  does not divide (the batch-1 validation) runs whole on every rank. Rank 0
+  alone writes the run directory.
+
 The weights come from a CPU generator seeded with ``args.seed``; ``device``
-is an argument of the trainer. Refused, naming the flag: ``data_parallel``
-and ``spatial_parallel`` above 1 (the parallel slice, ROADMAP Queue 1 item
-7) and ``ckpt_backend="orbax"`` (a JAX library; the port's snapshots take
-its place).
+is an argument of the trainer. Refused, naming the flag:
+``spatial_parallel`` above 1 (depth sharding, ROADMAP Queue 1 item 7b)
+and ``ckpt_backend="orbax"`` (a JAX library; the port's snapshots take its
+place).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import argparse
 import os
 from collections import OrderedDict
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +61,9 @@ from ..data.hbm_loader import read_list
 from ..data.volume3d import DeviceVolumeStore
 from ..models.factory import build_unet3d
 from ..models.unet3d import init_weights3d
+from ..parallel.mesh import (
+    DataGroup, any_rank, average_flat, barrier, mesh_devices, row_slice,
+    spawn)
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt_lib
 from .losses import dice_ce_loss_3d_binary, dice_ce_loss_3d_multiclass
@@ -174,13 +187,13 @@ class UNet3DArgs:
 def check_args3d(args: UNet3DArgs) -> None:
     """Raise ``ValueError`` naming the flag of a setting the port cannot
     run."""
-    for name in ("data_parallel", "spatial_parallel"):
-        if getattr(args, name) > 1:
-            raise ValueError(
-                f"--{name.replace('_', '-')} {getattr(args, name)} is not "
-                "ported: multi-device 3-D training waits for the parallel "
-                "slice (ROADMAP.md Queue 1 item 7); the port trains on one "
-                "device")
+    if args.spatial_parallel > 1:
+        raise ValueError(
+            f"--spatial-parallel {args.spatial_parallel} is not ported: "
+            "depth-sharded 3-D training waits for the model-parallel slice "
+            "(ROADMAP.md Queue 1 item 7b)")
+    if args.data_parallel < 1:
+        raise ValueError(f"--data-parallel {args.data_parallel} is below 1")
     if args.ckpt_backend != "msgpack":
         raise ValueError(f"--ckpt-backend {args.ckpt_backend!r} is not "
                          "ported: orbax is a JAX library; the port's own "
@@ -193,13 +206,24 @@ def check_args3d(args: UNet3DArgs) -> None:
 
 class UNet3DTrainer:
     """``UNet3DTrainer(args, device).fit()`` trains and writes
-    ``args.out_dir``."""
+    ``args.out_dir``; with ``group`` (of ``data_parallel`` ranks), one rank
+    of a data-parallel run on ``group.device``."""
 
     def __init__(self, args: UNet3DArgs,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 group: Optional[DataGroup] = None):
         check_args3d(args)
+        if (group.world if group is not None else 1) != args.data_parallel:
+            raise ValueError(
+                f"--data-parallel {args.data_parallel} on "
+                f"{group.world if group is not None else 1} rank(s): start "
+                "the ranks with this module's CLI (or parallel.spawn, "
+                "passing each rank's group)")
         self.args = args
-        self.device = resolve_device(device)
+        self.group = group
+        self.primary = group is None or group.primary
+        self.device = (group.device if group is not None
+                       else resolve_device(device))
         os.makedirs(args.out_dir, exist_ok=True)
 
         self.train_ds = KneeNPZ3D(args.train_list, roi=args.roi,
@@ -236,7 +260,7 @@ class UNet3DTrainer:
         self.best_val = float("inf")
         self.best_path = os.path.join(args.out_dir, "best3d.ckpt")
         self.log_csv = os.path.join(args.out_dir, "train_log.csv")
-        if not os.path.exists(self.log_csv):
+        if self.primary and not os.path.exists(self.log_csv):
             with open(self.log_csv, "w", encoding="utf-8") as f:
                 f.write("epoch,train_loss,val_loss,lr\n")
 
@@ -259,10 +283,19 @@ class UNet3DTrainer:
 
     def grads_one(self, x: torch.Tensor, y: torch.Tensor
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """The loss of one batch and the gradients of every parameter."""
+        """The loss of one batch and the gradients of every parameter; under
+        a group, of the global batch ``x``, ``y`` (this rank runs its rows),
+        equal on every rank."""
         self.model.train()
+        rows = row_slice(int(x.shape[0]), self.group)
+        if rows is not None:
+            x, y = x[rows], y[rows]
         loss = self._loss(x, y)
-        return loss.detach(), list(torch.autograd.grad(loss, self.params))
+        grads = list(torch.autograd.grad(loss, self.params))
+        if self.group is None:
+            return loss.detach(), grads
+        out = average_flat(grads + [loss.detach()], self.group)
+        return out[-1], out[:-1]
 
     def train_one_epoch(self) -> float:
         accum = max(1, int(self.args.accum_steps))
@@ -320,8 +353,10 @@ class UNet3DTrainer:
         host = {"epoch": int(epoch), "best_val": float(self.best_val),
                 "train_rng": self.train_ds.rng.bit_generator.state,
                 "val_rng": self.val_ds.rng.bit_generator.state}
-        ckpt_lib.save_resume(self.args.out_dir, epoch, tensors, host,
-                             keep=self.args.resume_keep)
+        if self.primary:
+            ckpt_lib.save_resume(self.args.out_dir, epoch, tensors, host,
+                                 keep=self.args.resume_keep)
+        barrier(self.group)
 
     def _try_resume(self) -> None:
         d = ckpt_lib.latest_resume_dir(self.args.out_dir)
@@ -345,17 +380,20 @@ class UNet3DTrainer:
                 tr = self.train_one_epoch()
                 vl = self.validate()
                 lr = self.optimizer.lr
-                print(f"Epoch {ep:03d}/{a.epochs} | train {tr:.4f} | "
-                      f"val {vl:.4f} | lr {lr:.2e}")
-                with open(self.log_csv, "a", encoding="utf-8") as f:
-                    f.write(f"{ep},{tr:.6f},{vl:.6f},{lr:.6e}\n")
+                if self.primary:
+                    print(f"Epoch {ep:03d}/{a.epochs} | train {tr:.4f} | "
+                          f"val {vl:.4f} | lr {lr:.2e}")
+                    with open(self.log_csv, "a", encoding="utf-8") as f:
+                        f.write(f"{ep},{tr:.6f},{vl:.6f},{lr:.6e}\n")
                 if vl < self.best_val:
                     self.best_val = vl
-                    ckpt_lib.save_best(self.best_path,
-                                       self.model.state_dict(), asdict(a))
-                    print("  >> saved best")
+                    if self.primary:
+                        ckpt_lib.save_best(self.best_path,
+                                           self.model.state_dict(), asdict(a))
+                        print("  >> saved best")
                 if a.save_resume_every and ep % a.save_resume_every == 0:
                     self._save_resume(ep)
+                self._preempt = any_rank(self._preempt, self.group)
                 if self._preempt:
                     if not (a.save_resume_every
                             and ep % a.save_resume_every == 0):
@@ -363,7 +401,9 @@ class UNet3DTrainer:
                     print(f"[preempt] resume snapshot saved (epoch {ep} "
                           f"done); stopping")
                     break
-        print("Done. Best:", self.best_path)
+        barrier(self.group)
+        if self.primary:
+            print("Done. Best:", self.best_path)
         return {"best_ckpt": self.best_path,
                 "best_val_loss": float(self.best_val)}
 
@@ -408,7 +448,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--accum-steps", type=int, default=1,
                    help="microbatches per optimizer update")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="ranks to train on, one card each (CPU ranks "
+                        "with --device cpu)")
     p.add_argument("--spatial-parallel", type=int, default=1,
                    help="only 1 is ported")
     p.add_argument("--resume", action="store_true",
@@ -449,9 +490,21 @@ def parse_args(argv=None) -> UNet3DArgs:
     return _args_of(build_parser().parse_args(argv))
 
 
+def _fit_rank(group: DataGroup, args: UNet3DArgs) -> Dict[str, Any]:
+    """One spawned rank of ``--data-parallel``."""
+    return UNet3DTrainer(args, group.device, group).fit()
+
+
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
-    UNet3DTrainer(_args_of(ns), ns.device).fit()
+    args = _args_of(ns)
+    if args.data_parallel > 1:
+        check_args3d(args)
+        devices = mesh_devices(args.data_parallel, ns.device)
+        spawn(_fit_rank, args.data_parallel, devices, args=(args,),
+              timeout_s=1e6)
+        return 0
+    UNet3DTrainer(args, ns.device).fit()
     return 0
 
 

@@ -270,9 +270,15 @@ def test_cli_yaml_rundir_params_and_evaluate(sheet, tmp_path, capsys):
     ev = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert ev["split"] == "test" and ev["n"] == 2
     assert ev["loss"] == out["test"]["loss"]
-    with pytest.raises(SystemExit):
-        tcli.main(["--mode", "t2", "--data-parallel", "2"])
-    assert "item 7" in capsys.readouterr().err
+    # --data-parallel 2: two spawned CPU ranks split each test batch of 2
+    # and gather the logits; this process prints rank 0's result
+    assert tcli.main(["--mode", "t2", "--datasheet", path, "--data-path",
+                      root, "--batch-size", "2", "--no-amp", "--norm-type",
+                      "2", "--evaluate", out["best_ckpt"], "--device",
+                      "cpu", "--data-parallel", "2"]) == 0
+    dp = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert dp["n"] == 2 and dp["auc"] == ev["auc"]
+    assert dp["loss"] == pytest.approx(ev["loss"], rel=1e-6)
 
 
 class _Split:
@@ -415,7 +421,8 @@ def test_evaluate_rebuilds_from_sidecar_and_refusals(tmp_path):
                                         params)
     with pytest.raises(ValueError, match="nu_max"):
         plain.load_state_dict(ams.state_dict())
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="data_parallel 2 on 1 rank.*"
+                       "cli.train_classify --data-parallel"):
         ttr.ClassifierTrainer(ttr.ClassifierArgs(
             out_dir=str(tmp_path / "dp"), data_parallel=2), train, val,
             device="cpu")

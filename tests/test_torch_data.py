@@ -221,12 +221,23 @@ def test_sample_params_within_recipe(recipe):
 
 
 def test_augment_none_is_identity_and_heavy_waits(rng):
+    """``none`` is the identity; ``heavy`` (ported: elastic, checked against
+    JAX in ``test_torch_parallel_mesh.py``) keeps shapes and dtypes, draws
+    an elastic seed a sample and is reproducible from the generator's
+    seed; an unknown recipe raises."""
     x = torch.from_numpy(rng.standard_normal((2, 1, 8, 8)).astype(np.float32))
     y = torch.zeros((2, 8, 8), dtype=torch.uint8)
     xo, yo = augment.augment_batch(x, y, None, "none")
     assert xo is x and yo is y
-    with pytest.raises(NotImplementedError):
-        augment.augment_batch(x, y, torch.Generator(), "heavy")
+    outs = [augment.augment_batch(x, y, torch.Generator().manual_seed(4),
+                                  "heavy") for _ in range(2)]
+    for xh, yh in outs:
+        assert xh.shape == x.shape and yh.shape == y.shape
+        assert xh.dtype == x.dtype and yh.dtype == y.dtype
+    assert torch.equal(outs[0][0], outs[1][0])
+    p = augment.sample_params(torch.Generator().manual_seed(4), 64, "heavy")
+    assert 0.3 < float(p.apply_elastic.float().mean()) < 0.7
+    assert len(set(p.elastic_seed.tolist())) == 64
     with pytest.raises(ValueError):
         augment.check_recipe("strong")
 

@@ -54,6 +54,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.infer import segment
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.convert import (
     state_dict_from_flax)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.factory import build_unet
+from mri_acl_imagesegmentation_adsp_tpu_torch.models.unet2d import init_weights
 from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import (
     checkpoint, trainer)
@@ -244,12 +245,14 @@ def test_infer_cli_matches_jax_cli(tmp_path, capsys):
 
 
 def test_infer_cli_refuses_what_is_not_ported(capsys):
-    """Multi-device inference, 2-D or depth-sharded 3-D, raises naming
-    its flag, and a run needs a checkpoint or an artifact."""
+    """Depth-sharded 3-D inference, and data-parallel 3-D inference (a
+    whole volume is one forward), raise naming their flag, and a run
+    needs a checkpoint or an artifact."""
     for flag, says in ((["--ckpt3d", "b.ckpt", "--spatial-parallel", "2"],
                         "--spatial-parallel 2"),
                        (["--spatial-parallel", "2"], "--spatial-parallel 2"),
-                       (["--data-parallel", "2"], "--data-parallel 2"),
+                       (["--ckpt3d", "b.ckpt", "--data-parallel", "2"],
+                        "--data-parallel 2 splits 2-D batches"),
                        (["--quant", "int4"], "invalid choice")):
         with pytest.raises(SystemExit) as e:
             infer.main(["--ckpt", "x.ckpt", "--list", "l.txt", *flag])
@@ -262,6 +265,29 @@ def test_infer_cli_refuses_what_is_not_ported(capsys):
         infer.main(["--help"])
     help_text = "".join(capsys.readouterr().out.split())
     assert all(f in help_text for f in ("--quant", "--qtree", "--ckpt3d"))
+
+
+def test_infer_cli_data_parallel_equals_one_device(tmp_path):
+    """``--data-parallel 2 --device cpu``: every batch split over two CPU
+    model replicas (6 slices at batch 4: the batch stays 4, the volume pads
+    to 8); the masks are one device's bit for bit, the metrics equal."""
+    lst = _write_packs(tmp_path / "packs", n=1, hw=32)
+    model = init_weights(build_unet("unet", "resnet18", classes=1),
+                         torch.Generator().manual_seed(5))
+    ck = str(tmp_path / "port.ckpt")
+    checkpoint.save_best(ck, model.state_dict(), ARGS)
+    outs = []
+    for extra in ([], ["--data-parallel", "2"]):
+        out = tmp_path / f"dp{len(extra)}"
+        assert infer.main(["--ckpt", ck, "--list", lst, "--out-dir",
+                           str(out), "--metrics", "--batch-size", "4",
+                           "--device", "cpu", *extra]) == 0
+        outs.append(out)
+    one, two = (json.loads((o / "summary.json").read_text()) for o in outs)
+    assert [s["dice"] for s in one] == [s["dice"] for s in two]
+    np.testing.assert_array_equal(
+        np.load(outs[0] / "vol0" / "pred_mask.npy"),
+        np.load(outs[1] / "vol0" / "pred_mask.npy"))
 
 
 def test_infer_cli_warns_for_multiclass(tmp_path, capsys):

@@ -171,6 +171,29 @@ def test_segment_matches_jax_runner(served):
     np.testing.assert_array_equal(masks_only["mask"], got["mask"])
 
 
+def test_data_parallel_daemon_matches_one_device(ckpts, served):
+    """``--data-parallel 2`` on the CPU: each batch of 4 splits over two
+    replicas (2 slices each; 5 slices pad to 8); the /v1/segment reply's
+    masks are the one-device daemon's bit for bit and its probabilities
+    equal them to 1e-5 (a batch of 2 sums its convolutions in another
+    order than a batch of 4)."""
+    url1, _ = served
+    server, thread = _start(ckpts[1], data_parallel=2)
+    try:
+        runner = server.RequestHandlerClass.runner
+        assert runner.apply_fn.n_devices == 2
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        vol = np.random.default_rng(0).standard_normal((5, 32, 32)).astype(
+            np.float32)
+        got = _post(url + "/v1/segment?probs=1", img=vol)
+        want = _post(url1 + "/v1/segment?probs=1", img=vol)
+        np.testing.assert_array_equal(got["mask"], want["mask"])
+        np.testing.assert_allclose(got["probs"], want["probs"], rtol=0,
+                                   atol=1e-5)
+    finally:
+        _stop(server, thread)
+
+
 def test_bad_requests(served):
     url, _ = served
     pair = np.zeros((2, 16, 16, 2), np.float32)
@@ -188,9 +211,10 @@ def test_bad_requests(served):
 @pytest.mark.parametrize("flag", [["--task", "classify"], ["--task", "recon"],
                                   ["--data-parallel", "2"]])
 def test_main_refuses_what_is_not_ported(flag, capsys, monkeypatch):
-    """Multi-device serving is refused naming ROADMAP item 7; ``--task
-    recon`` and ``--task classify`` are accepted and reach the server with
-    their task and checkpoint (and refuse a ``--qtree``)."""
+    """``--data-parallel 2`` reaches the server (segmentation on two
+    replicas) and is refused with ``--task recon``, which serves on one
+    device; ``--task recon`` and ``--task classify`` are accepted and reach
+    the server with their task and checkpoint (and refuse a ``--qtree``)."""
     seen = []
 
     def create_server(args):
@@ -206,11 +230,17 @@ def test_main_refuses_what_is_not_ported(flag, capsys, monkeypatch):
         assert e.value.code == 2
         capsys.readouterr()
     else:
-        with pytest.raises(SystemExit) as e:
+        with pytest.raises(KeyboardInterrupt):
             serve.main(["--ckpt", "unused.ckpt", *flag])
-        assert e.value.code == 2 and not seen
-        err = capsys.readouterr().err
-        assert flag[0] in err and "item 7" in err
+        assert seen[0].data_parallel == 2 and seen[0].task == "segment"
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--ckpt", "unused.ckpt", "--task", "recon", *flag])
+        assert e.value.code == 2 and len(seen) == 1
+        assert "--data-parallel 2" in capsys.readouterr().err
+        with pytest.raises(ValueError, match="--task classify serves on one"):
+            serve._build_runner(SimpleNamespace(
+                task="classify", ckpt="unused.ckpt", data_parallel=2,
+                device="cpu"))
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert flag[0] in "".join(capsys.readouterr().out.split())

@@ -455,18 +455,57 @@ def test_committed_args_json_files_replay():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("data_parallel", 2), ("multihost", True), ("store_sharded", True),
     ("store_dtype", "float16"), ("ckpt_async", True),
     ("ckpt_backend", "orbax"),
     ("save_resume_every", -1), ("save_resume_steps", -5),
     ("resume_keep", -2), ("profile_epochs", -1),
     ("encoder_weights", "/nonexistent/resnet.pt"),
-    ("encoder_weights", "imagenet"), ("data_parallel", 4)])
+    ("encoder_weights", "imagenet"), ("data_parallel", 0)])
 def test_refused_extensions_raise_naming_the_flag(tmp_path, field, value):
     args = trainer.UNet2DArgs(out_dir=str(tmp_path / "run"), **{field: value})
     with pytest.raises(ValueError, match="--" + field.replace("_", "-")):
         trainer.UNet2DTrainer(args, device="cpu")
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("data_parallel", 2), ("multihost", True), ("store_sharded", True),
+    ("data_parallel", 4)])
+def test_parallel_extensions_of_the_trainer(tmp_path, monkeypatch, field,
+                                            value):
+    """What the data-parallel flags do in one process (the ranks
+    themselves run in ``test_torch_parallel_*.py``): ``data_parallel``
+    above 1 needs a group of that many ranks, which ``cli.launcher``
+    spawns; ``multihost`` without torchrun's environment trains on one
+    rank, as JAX's ``distributed_init`` is a no-op there; ``store_sharded``
+    keeps a rank's share of the store padded to the world."""
+    args = trainer.UNet2DArgs(out_dir=str(tmp_path / "run"), **{field: value})
+    cpu = torch.device("cpu")
+    if field == "data_parallel":
+        with pytest.raises(ValueError, match=f"--data-parallel {value} "
+                           "trains on that many ranks: start them with "
+                           "cli.launcher"):
+            trainer.UNet2DTrainer(args, device="cpu")
+        assert not (tmp_path / "run").exists()
+        with pytest.raises(ValueError, match=f"--data-parallel {value} on "
+                           "a group of 3 ranks"):
+            trainer._rank_group(args, cpu, SimpleNamespace(world=3))
+        group = SimpleNamespace(world=value)
+        assert trainer._rank_group(args, cpu, group) is group
+    elif field == "multihost":
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        assert trainer._rank_group(args, cpu, None) is None
+    else:
+        x, y = _batch(3, 5)
+        src = hbm_loader.SliceStore(x[..., 0], y, np.array([0, 2]),
+                                    np.array([2, 3]), [])
+        for rank, rows in ((0, [0, 1, 2]), (1, [3, 4, 4])):
+            st = src.to_device(3, device="cpu", shard=args.store_sharded,
+                               group=SimpleNamespace(world=2, rank=rank))
+            assert st.sharded and st.row0 == rows[0] and st.num_slices == 5
+            np.testing.assert_array_equal(st.images.numpy(), x[rows, ..., 0])
+            np.testing.assert_array_equal(st.neighbors.numpy(),
+                                          src.neighbor_table(3))
 
 
 def test_loggers(tmp_path):

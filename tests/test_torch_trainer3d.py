@@ -311,12 +311,19 @@ def test_cli_parses_as_jax_and_refuses_what_is_not_ported(packs, tmp_path):
     assert t3d.UNet3DArgs() == t3d.UNet3DArgs(**jt3d.UNet3DArgs().__dict__)
     assert t3d.main([*argv, "--device", "cpu"]) == 0
     assert _log(tmp_path / "cli")[0] == "epoch,train_loss,val_loss,lr"
-    for kw, flag in (({"data_parallel": 2}, "--data-parallel 2"),
+    for kw, flag in (({"data_parallel": 2}, "--data-parallel 2 on 1 rank"),
                      ({"spatial_parallel": 2}, "--spatial-parallel 2"),
                      ({"ckpt_backend": "orbax"}, "--ckpt-backend")):
         with pytest.raises(ValueError, match=flag):
             t3d.UNet3DTrainer(_args(t3d.UNet3DArgs, packs,
                                     tmp_path / "no", **kw), device="cpu")
+    # --data-parallel 2 through the CLI: two spawned CPU ranks, rank 0
+    # writing the one log (its header and one row an epoch)
+    assert t3d.main([*argv[:5], str(tmp_path / "dp"), *argv[6:],
+                     "--data-parallel", "2", "--device", "cpu"]) == 0
+    log = _log(tmp_path / "dp")
+    assert log[0] == "epoch,train_loss,val_loss,lr" and len(log) == 2
+    assert os.path.isfile(tmp_path / "dp" / "best3d.ckpt")
 
 
 # ---------------------------------------------------------------------------
