@@ -101,7 +101,12 @@ Phases, each printing one JSON line with its seconds:
      200x104, R=2; the EPI timing from an ISMRMRD header), each timed over
      2 runs after a warm-up with its peak memory, and held against the port
      on the CPU on one slice (T2: slice 0 of the card's case; DWI: every
-     output map); four pickled 35x640x368 magnitude volumes through
+     output map); each once more with its slices spread over ``mesh=[cuda:0,
+     cuda:0]``, timed and held to the one-device output within rtol / atol
+     1e-5 (the thresholded DWI maps by the share of pixels past);
+     ``cli.recon --data-parallel`` with one card more than there are
+     refused ("requested N devices, have M"); four pickled 35x640x368
+     magnitude volumes through
      ``build_preprocess`` with ``KneePckAdapter`` (each mask kernel once a
      volume), again with ``skip_existing`` (nothing redone), and the packs
      through the slice store's native npz loader, bit-equal to
@@ -156,14 +161,25 @@ Phases, each printing one JSON line with its seconds:
      ``validate_volume_sharded`` against one rank, a one-epoch
      ``UNet2DTrainer`` run writing the one-rank run's files from rank 0,
      one step of ConvNeXt base (224x224, batch 32) and of the 3-D U-Net
-     (reference width, ROI 160x160x64); ``segment_volume_2d`` on devices
+     (reference width, ROI 160x160x64); ``tools/probe_coil_parallel.py``'s
+     ``rank_main`` in the same ranks: the protocol VarNet (10 cascades,
+     ``chans`` 20, 12 coils, 320x320) on a ``(1, 2)`` coil grid, one f32
+     step against one rank (the loss within 1e-5, the gradients' drift
+     against a coil-order floor), the same step in float64 at a 160x160
+     crop (1e-10 of each tensor's max), ms a bf16 step on the grid and on
+     one rank, the coil all-reduces a step and their bytes;
+     ``preprocess_volumes_pairs(devices=[cuda:0, cuda:0])`` on the two
+     volumes bit-equal to per-volume calls (each mask kernel once a
+     volume); ``segment_volume_2d`` on devices
      ``[cuda:0, cuda:0]`` bit-equal to one device; a world-1 NCCL group
      taking one U-Net step, its ``barrier`` holding the host until the
      card's queued work has run; ``cli.launcher --data-parallel`` with one
      rank more than cards refused ("requested N devices, have M");
      ``graft_entry.dryrun_multichip(2)`` passing (its ``dryrun_rank`` and
-     the probe run in the same two ranks, one spawn for both, and
-     ``dryrun_check`` holds them to one device).
+     the probes run in the same two ranks, one spawn for all, and
+     ``dryrun_check`` holds them to one device: the U-Net, the classifier,
+     the one-cascade VarNet on a (1, 2) grid and the T2 recon over
+     ``[cuda:0, cuda:0]``).
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -203,8 +219,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.classify.dataset import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.classify.trainer import (
     ClassifierArgs, ClassifierTrainer)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli import (
-    evaluate as evaluate_cli, infer, launcher, quantize, serve,
-    train_classify, train_varnet)
+    evaluate as evaluate_cli, infer, launcher, quantize, recon as recon_cli,
+    serve, train_classify, train_varnet)
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer import (
     load_model_from_ckpt, model_apply_fn)
 from mri_acl_imagesegmentation_adsp_tpu_torch import native
@@ -247,8 +263,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.report import exporter
 from mri_acl_imagesegmentation_adsp_tpu_torch import graft_entry
 from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
-    classify_synthetic, corpus_run, probe_data_parallel, probe_label_prop,
-    probe_recon, varnet_synthetic)
+    classify_synthetic, corpus_run, probe_coil_parallel, probe_data_parallel,
+    probe_label_prop, probe_recon, varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -344,6 +360,9 @@ RECON_REL = 1e-4           # a pixel "past": |card - CPU| > this x max|CPU|
 RECON_CARD_REL = 1e-3      # card vs CPU recon, relative to max |CPU| ...
 RECON_PIXELS_PAST = 1e-3   # ... or, for the thresholded DWI maps, at most
 DWI_THRESHOLDED = ("adc_map", "b1500")  # this share of pixels past
+RECON_MESH_TOL = 1e-5      # mesh=[cuda:0, cuda:0] vs one device: rtol and
+                           # atol (JAX's _dryrun_t2_sharded_recon), the
+                           # thresholded DWI maps by RECON_PIXELS_PAST
 PCK_VOLUMES = 4            # pickled magnitude volumes through the ingest
 PCK_VOLUME = (35, 640, 368)
 VARNET_AVES = 3            # b50, the VarNetArgs defaults' b-value
@@ -2543,12 +2562,55 @@ def _maps_vs_cpu(got: dict, want: dict) -> dict:
     return out
 
 
+def _mesh_vs_one(run_mesh, got: dict, thresholded=()) -> dict:
+    """One timed run of a recon with its slices spread over ``[cuda:0,
+    cuda:0]`` against the one-device output ``got``: each key within
+    RECON_MESH_TOL (rtol and atol), a thresholded key at most
+    RECON_PIXELS_PAST of its pixels past; the largest difference."""
+    t1 = time.perf_counter()
+    out = run_mesh()
+    torch.cuda.synchronize()
+    res = {"case_s": time.perf_counter() - t1, "devices": 2, "keys": {}}
+    for key, want in got.items():
+        a, b = np.asarray(out[key]), np.asarray(want)
+        past = np.abs(a - b) > RECON_MESH_TOL * (1 + np.abs(b))
+        res["keys"][key] = {"max_abs_diff": float(np.abs(a - b).max()),
+                            "pixels_past": int(past.sum())}
+        allowed = (RECON_PIXELS_PAST * b.size if key in thresholded else 0)
+        if a.shape != b.shape or past.sum() > allowed:
+            raise AssertionError(f"recon on [cuda:0, cuda:0] vs one device, "
+                                 f"{key}: {res['keys'][key]}")
+    res["max_abs_diff"] = max(v["max_abs_diff"] for v in res["keys"].values())
+    return res
+
+
+def recon_cli_refusal(tmp: str) -> dict:
+    """``cli.recon --data-parallel`` asking one card more than there are
+    raises as JAX's ``make_mesh`` does."""
+    n, have = torch.cuda.device_count() + 1, torch.cuda.device_count()
+    want = f"requested {n} devices, have {have}"
+    try:
+        recon_cli.main(["--data-path", tmp, "--output-path",
+                        os.path.join(tmp, "recon_refused"), "--sequence",
+                        "t2", "--data-parallel", str(n)])
+    except ValueError as exc:
+        if str(exc) != want:
+            raise AssertionError(f"cli.recon said {exc!r}, not {want!r}"
+                                 ) from exc
+        return {"data_parallel": n, "said": str(exc)}
+    raise AssertionError(f"cli.recon --data-parallel {n} on {have} card(s) "
+                         "ran")
+
+
 def t2_protocol(dev: torch.device) -> dict:
     """The T2 protocol case on the card, timed, against the port on the CPU
-    on slice 0 (slices are independent)."""
+    on slice 0 (slices are independent), and once with its slices spread
+    over ``[cuda:0, cuda:0]`` against the one-device output."""
     k, calib = probe_recon.t2_protocol_case(0, T2_CASE)
     run = lambda: t2_reconstruction(k, calib, device=dev)  # noqa: E731
     got, timing = _timed_recon(run, T2_CASE[1])
+    on_mesh = _mesh_vs_one(lambda: t2_reconstruction(
+        k, calib, mesh=[dev, dev], device=dev), got)
     t1 = time.perf_counter()
     want = t2_reconstruction(k[:, :1], calib[:1], device="cpu")
     cpu_s = time.perf_counter() - t1
@@ -2560,7 +2622,7 @@ def t2_protocol(dev: torch.device) -> dict:
         raise AssertionError(f"T2 protocol case: {shape}, {vs}")
     return {"case": list(T2_CASE), "r": probe_recon.T2_R,
             "acs": probe_recon.T2_ACS, "output": list(shape), **timing,
-            "cpu_one_slice_s": cpu_s,
+            "mesh": on_mesh, "cpu_one_slice_s": cpu_s,
             "card_vs_cpu_slice0": vs["reconstruction_rss"],
             "stages_s": probe_recon.t2_stages(dev, k, calib),
             "traced": probe_recon.card_busy(run)}
@@ -2569,11 +2631,16 @@ def t2_protocol(dev: torch.device) -> dict:
 def dwi_protocol(dev: torch.device) -> dict:
     """The DWI protocol case on the card, timed, and one slice on the card
     against the port on the CPU for every output key (the b1500 noise floor
-    is a median over the whole volume, so both sides run the same slice)."""
+    is a median over the whole volume, so both sides run the same slice);
+    once with its slices spread over ``[cuda:0, cuda:0]`` against the
+    one-device output."""
     k, calib, sens, hdr = probe_recon.dwi_protocol_case(1, DWI_CASE)
     run = lambda: dwi_reconstruction(  # noqa: E731
         k, calib, sens, hdr, device=dev)
     got, timing = _timed_recon(run, DWI_CASE[1])
+    on_mesh = _mesh_vs_one(lambda: dwi_reconstruction(
+        k, calib, sens, hdr, mesh=[dev, dev], device=dev), got,
+        DWI_THRESHOLDED)
     one = (k[:, :1], calib[:1], sens[:1], hdr)
     t1 = time.perf_counter()
     want = dwi_reconstruction(*one, device="cpu")
@@ -2588,7 +2655,8 @@ def dwi_protocol(dev: torch.device) -> dict:
     if bad or set(map(tuple, shapes.values())) != {crop}:
         raise AssertionError(f"DWI protocol case: {shapes}, {vs}")
     return {"case": list(DWI_CASE), "r": probe_recon.DWI_R, "epi": hdr,
-            **timing, "cpu_one_slice_s": cpu_s, "keys": sorted(got),
+            **timing, "mesh": on_mesh, "cpu_one_slice_s": cpu_s,
+            "keys": sorted(got),
             "card_vs_cpu_one_slice": vs,
             "stages_s": probe_recon.dwi_stages(dev, k, calib, sens, hdr),
             "traced": probe_recon.card_busy(run)}
@@ -2709,7 +2777,13 @@ def phase_recon_ingest(dev: torch.device, defaults: dict, tmp: str,
     reset_mask_launches()
     out = {"card": smi, "t2": t2_protocol(dev)}
     out["dwi"] = dwi_protocol(dev)
+    out["recon_cli_refusal"] = recon_cli_refusal(tmp)
     recon_launches = mask_launches()
+    for seq in ("t2", "dwi"):
+        print(f"{seq} on [cuda:0, cuda:0]: largest difference from one "
+              f"device {out[seq]['mesh']['max_abs_diff']:.3g} (rtol / atol "
+              f"{RECON_MESH_TOL}), {out[seq]['mesh']['case_s']:.3f} s a case "
+              f"(one device {min(out[seq]['case_s']):.3f} s)", flush=True)
     if any(recon_launches.values()):
         raise AssertionError(f"the recon launched mask kernels: "
                              f"{recon_launches}")
@@ -3612,12 +3686,50 @@ def dp_barrier_waits(group: mesh.DataGroup) -> dict:
     return out
 
 
-def dp_rank(group: mesh.DataGroup, probe_args: tuple) -> dict:
-    """Phase 15's work on each of its ranks: the dry run's, then the
-    probe's (one spawn for both: a rank's start on the card costs some
-    20 s of CUDA set-up)."""
-    return {"dryrun": graft_entry.dryrun_rank(group, True),
-            "probe": probe_data_parallel.rank_main(group, *probe_args)}
+def dp_spread_preprocess(dev: torch.device) -> dict:
+    """Phase 15's two volumes through ``preprocess_volumes_pairs(devices=
+    [cuda:0, cuda:0])``, bit-equal to per-volume calls, each mask kernel
+    launched once a volume in the spread call and in each per-volume
+    call."""
+    pre = MRIKneePreprocessor(out_size=(320, 320), slice_keep=(0.3, 0.7),
+                              device=dev)
+    pairs = [synthetic_kspace_pairs(seed=40 + i, s=VOLUME[0], h=VOLUME[1],
+                                    w=VOLUME[2]) for i in range(DP_VOLUMES)]
+    reset_mask_launches()
+    got = pre.preprocess_volumes_pairs(pairs, devices=[dev, dev])
+    spread = mask_launches()
+    per_volume, equal = [], []
+    for pair, g in zip(pairs, got):
+        reset_mask_launches()
+        want = pre.preprocess_volume_pairs(pair)
+        per_volume.append(mask_launches())
+        equal.append(all(torch.equal(g[key], want[key])
+                         for key in ("tensor", "preview", "mask")))
+    out = {"volumes": len(pairs), "devices": 2, "bit_equal": equal,
+           "launches_spread": spread,
+           "launches_per_volume": {k: v / len(pairs)
+                                   for k, v in spread.items()},
+           "launches_per_volume_call": per_volume}
+    if not all(equal) or set(spread.values()) != {len(pairs)} or any(
+            set(n.values()) != {1} for n in per_volume):
+        raise AssertionError(f"preprocess_volumes_pairs over [cuda:0, "
+                             f"cuda:0]: {out}")
+    print(f"preprocess_volumes_pairs over [cuda:0, cuda:0]: {len(pairs)} "
+          f"volumes bit-equal to per-volume calls, mask kernel launches "
+          f"a volume {out['launches_per_volume']}", flush=True)
+    return out
+
+
+def dp_rank(group: mesh.DataGroup, probe_args: tuple,
+            coil_args: tuple) -> dict:
+    """Phase 15's work on each of its ranks: the dry run's, the data-
+    parallel probe's and the coil-parallel probe's (one spawn for all: a
+    rank's start on the card costs some 20 s of CUDA set-up)."""
+    out = {"dryrun": graft_entry.dryrun_rank(group, True),
+           "probe": probe_data_parallel.rank_main(group, *probe_args)}
+    torch.cuda.empty_cache()
+    out["coil"] = probe_coil_parallel.rank_main(group, *coil_args)
+    return out
 
 
 def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
@@ -3630,16 +3742,20 @@ def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
     if set(launches.values()) != {DP_VOLUMES}:
         raise AssertionError(f"phase 15 packed {DP_VOLUMES} volumes with "
                              f"{launches} mask kernel launches")
-    out = {"launcher_refusal": dp_launcher_refusal(tmp)}
+    out = {"launcher_refusal": dp_launcher_refusal(tmp),
+           "spread_preprocess": dp_spread_preprocess(dev)}
     with probe_data_parallel.f32_deterministic():
         out["segment"] = dp_segment(dev, val_list)
         out["nccl_world1"] = dp_nccl_world1(dev, train_list, tmp)
-        # graft_entry.dryrun_multichip(2)'s ranks, then the probe's
+        # graft_entry.dryrun_multichip(2)'s ranks, then the probes'
         t1, wall = time.perf_counter(), time.time()
         devices, where = graft_entry.dryrun_devices(2)
+        coil_args, coil_case = probe_coil_parallel.protocol_case()
         ranks = mesh.spawn(dp_rank, 2, devices, timeout_s=900.0, args=(
-            probe_data_parallel.rank_args(train_list, val_list, tmp),))
+            probe_data_parallel.rank_args(train_list, val_list, tmp),
+            (coil_args, coil_case, tmp)))
         out["probe"] = ranks[0]["probe"]
+        out["coil_probe"] = ranks[0]["coil"]
         out["probe"]["part_seconds"]["spawn_to_probe_start"] = (
             out["probe"].pop("started") - wall)
         out["dryrun_multichip"] = graft_entry.dryrun_check(
@@ -3653,7 +3769,24 @@ def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
           f"{timing['ms_step_one_rank']:.1f} ms), gradient all-reduce "
           f"{timing['ms_allreduce']:.1f} ms for "
           f"{timing['allreduce_bytes']} bytes", flush=True)
-    emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0,
+    coil = out["coil_probe"]
+    print(f"coil parallel, protocol VarNet on a (1, 2) grid over gloo: "
+          f"{coil['timing']['ms_step_grid']:.1f} ms a bf16 step (1 rank "
+          f"{coil['timing']['ms_step_one_rank']:.1f} ms), "
+          f"{coil['timing']['coil_all_reduces']} coil all-reduces a step "
+          f"({coil['timing']['coil_bytes']} bytes), f32 step: loss "
+          f"{coil['f32']['loss_abs_diff']:.2e} off, gradient drift worst "
+          f"{coil['f32']['grad_worst_drift']:.2e} "
+          f"({coil['f32']['grad_worst_tensor']}) median "
+          f"{coil['f32']['grad_median_drift']:.2e} (coil-order floor "
+          f"{coil['f32']['floor_worst_drift']:.2e} / "
+          f"{coil['f32']['floor_median_drift']:.2e}), float64 "
+          f"{coil['f64']['f64_worst_rel_to_max']:.2e} of a tensor's max "
+          f"({coil['f64']['f64_worst_tensor']}); parts "
+          f"{coil['part_seconds']}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 15: {seconds:.1f} s", flush=True)
+    emit({"phase": "data_parallel", "seconds": seconds,
           "launches": launches, **out})
     return {"data_parallel": launches}
 
@@ -3698,6 +3831,7 @@ def main() -> int:
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}
     emit({"kernels": [row, cc_row, prop_row]})
+    print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
     emit({"total_seconds": time.perf_counter() - t0})
     faulthandler.cancel_dump_traceback_later()

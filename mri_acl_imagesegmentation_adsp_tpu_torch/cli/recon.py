@@ -5,9 +5,11 @@ Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/cli/recon.py:21-77``
 ``fastmri_prostate_recon.py``: walk ``{data_path}/{split}/{T2,DIFFUSION}``,
 reconstruct each ``.h5`` case with the GRAPPA pipelines and save the result
 ``.h5`` under the output path, with the same flags, plus ``--device``
-(default ``cuda``, which raises without a card). ``--data-parallel`` above
-1 is refused (ROADMAP.md Queue 1 item 7). Reading and writing ``.h5`` needs
-h5py.
+(default ``cuda``, which raises without a card). ``--data-parallel N``
+spreads each case's GRAPPA hole-fill over ``N`` devices
+(``parallel/mesh.py:mesh_devices``: ``N`` cards, or ``N`` CPU devices
+with ``--device cpu``), raising as JAX's ``make_mesh`` does where the cards
+are fewer. Reading and writing ``.h5`` needs h5py.
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.recon \\
       --data-path /data/prostate --output-path recons \\
@@ -20,8 +22,8 @@ import argparse
 from pathlib import Path
 
 from ..data.recon_data import load_file_dwi, load_file_T2, save_recon
+from ..parallel.mesh import mesh_devices
 from ..recon import dwi_reconstruction, t2_reconstruction
-from ..recon.grappa import MESH_REFUSAL
 
 
 def reconstruct_case(fname: str, sequence: str, mesh=None,
@@ -45,8 +47,8 @@ def main(argv=None) -> int:
     p.add_argument("--split", default="training",
                    choices=["training", "validation", "test"])
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="shard each case's slices over N devices; only 1 "
-                        "is ported")
+                   help="shard each case's slices over N devices "
+                        "(slices are independent)")
     p.add_argument("--transfer-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="bfloat16 halves the bulk k-space upload bytes; "
@@ -55,8 +57,9 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda or cpu; cuda raises without a card.")
     args = p.parse_args(argv)
+    mesh = None
     if args.data_parallel > 1:
-        p.error(f"--data-parallel {args.data_parallel}: {MESH_REFUSAL}")
+        mesh = mesh_devices(args.data_parallel, args.device)
 
     sub = "T2" if args.sequence == "t2" else "DIFFUSION"
     case_dir = args.data_path / args.split / sub
@@ -69,7 +72,7 @@ def main(argv=None) -> int:
         if fname.suffix != ".h5":
             continue
         print(f"[recon] {fname.name} ({args.sequence})")
-        out = reconstruct_case(str(fname), args.sequence,
+        out = reconstruct_case(str(fname), args.sequence, mesh=mesh,
                                transfer_dtype=args.transfer_dtype,
                                device=args.device)
         save_recon(out, str(args.output_path / fname.name))

@@ -7,10 +7,15 @@ optional prospective mask (``--mask-type``), ``--mode train`` (fit, with
 resume snapshots and preemption) or ``--mode test`` (resume, validate and,
 with ``--recon-out``, one reconstruction ``.h5`` a test volume), plus
 ``--device`` (default ``cuda``, which raises without a card). Reading the
-slices needs h5py. Refused, naming ROADMAP.md Queue 1 item 7:
-``--data-parallel``, ``--coil-parallel`` and ``--pipeline-parallel`` above
-1; refused as the trainer refuses them: ``--ckpt-backend orbax`` and
-``--ckpt-async`` (the port's own snapshots take their place).
+slices needs h5py. ``--data-parallel D --coil-parallel C`` above ``1 x 1``
+spawns ``D * C`` ranks (``parallel/mesh.py:spawn``, one card each, or CPU
+ranks with ``--device cpu``) on a ``(D, C)`` grid (``make_recon_grid``),
+each reading the slices and training its block of each batch; rank 0
+writes the run. Asking for more ranks than cards raises as JAX's
+``make_recon_mesh`` does. Refused: ``--pipeline-parallel`` above 1 (the
+cascade pipeline, ROADMAP.md Queue 1 item 7b-ii), and, as the trainer
+refuses them, ``--ckpt-backend orbax`` and ``--ckpt-async`` (the port's own
+snapshots take their place).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.train_varnet \\
       --data-path /data/prostate_dwi --bvalue b50 --out-dir runs/varnet_b50
@@ -73,30 +78,21 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["msgpack", "orbax"],
                    help="only the port's own snapshots (msgpack's place)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="ranks on the batch ('data') axis of the grid")
     p.add_argument("--coil-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="ranks on the coil axis of the grid (k-space and "
+                        "sensitivity coil shares; one coil sum a cascade)")
     p.add_argument("--pipeline-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="not ported (ROADMAP.md Queue 1 item 7b-ii); "
+                        "only 1")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     return p
 
 
-def main(argv=None) -> int:
-    from ..data.recon_data import SliceDataset
-    from ..data.transforms import VarNetDataTransform
-    from ..train.varnet_trainer import (VarNetArgs, VarNetTrainer,
-                                        check_varnet_args)
-
-    p = build_parser()
-    args = p.parse_args(argv)
-    for flag in ("data_parallel", "coil_parallel", "pipeline_parallel"):
-        if getattr(args, flag) > 1:
-            p.error(f"--{flag.replace('_', '-')} {getattr(args, flag)}: "
-                    "multi-device VarNet training is not ported (ROADMAP.md "
-                    "Queue 1 item 7); the port trains on one device")
-    vargs = VarNetArgs(
+def _varnet_args(args):
+    from ..train.varnet_trainer import VarNetArgs
+    return VarNetArgs(
         out_dir=args.out_dir, bvalue=args.bvalue,
         num_cascades=args.num_cascades, pools=args.pools, chans=args.chans,
         sens_pools=args.sens_pools, sens_chans=args.sens_chans, lr=args.lr,
@@ -105,11 +101,45 @@ def main(argv=None) -> int:
         amp=args.amp, batch_size=args.batch_size,
         num_workers=args.num_workers, ckpt_backend=args.ckpt_backend,
         resume_keep=args.resume_keep, ckpt_async=args.ckpt_async)
+
+
+def main(argv=None) -> int:
+    from ..parallel.mesh import mesh_devices, spawn
+    from ..train.varnet_trainer import check_varnet_args
+
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.pipeline_parallel > 1:
+        p.error(f"--pipeline-parallel {args.pipeline_parallel}: the cascade "
+                "pipeline (GPipe, point to point) is not ported (ROADMAP.md "
+                "Queue 1 item 7b-ii)")
     try:
-        check_varnet_args(vargs)
+        check_varnet_args(_varnet_args(args))
     except ValueError as exc:
         p.error(str(exc))
+    world = args.data_parallel * args.coil_parallel
+    if world > 1:
+        spawn(run_rank, world, mesh_devices(world, args.device),
+              args=(args,), timeout_s=1e6)
+        return 0
+    return run(args)
 
+
+def run_rank(group, args) -> int:
+    """One spawned rank of ``--data-parallel`` x ``--coil-parallel``."""
+    from ..parallel.mesh import make_recon_grid
+    return run(args, make_recon_grid(group, args.data_parallel,
+                                     args.coil_parallel))
+
+
+def run(args, grid=None) -> int:
+    """Train or test on the parsed ``args``, on one device or as one rank
+    of ``grid``."""
+    from ..data.recon_data import SliceDataset
+    from ..data.transforms import VarNetDataTransform
+    from ..train.varnet_trainer import VarNetTrainer
+
+    device = grid.device if grid is not None else args.device
     mask_func = None
     if args.mask_type != "none":
         from ..data.subsample import EquispacedMaskFunc, RandomMaskFunc
@@ -118,12 +148,12 @@ def main(argv=None) -> int:
         mask_func = cls(args.center_fractions, args.accelerations)
     transform = VarNetDataTransform(mask_func=mask_func)
     train_ds = SliceDataset(args.data_path / "train", args.bvalue, transform,
-                            device=args.device)
+                            device=device)
     val_ds = SliceDataset(args.data_path / "val", args.bvalue, transform,
-                          device=args.device)
+                          device=device)
 
-    trainer = VarNetTrainer(vargs, train_ds=train_ds, val_ds=val_ds,
-                            device=args.device)
+    trainer = VarNetTrainer(_varnet_args(args), train_ds=train_ds,
+                            val_ds=val_ds, mesh=grid, device=device)
     if args.mode == "train":
         trainer.fit(resume=args.resume,
                     save_resume_every=args.save_resume_every,
@@ -133,16 +163,19 @@ def main(argv=None) -> int:
     if len(seed_ds):
         trainer._init_if_needed(seed_ds[0].kspace, seed_ds[0].espirit)
     trainer.try_resume()
-    print(trainer.validate())
+    metrics = trainer.validate()
+    if trainer.primary:
+        print(metrics)
     test_root = args.test_path or (args.data_path / "test")
     if not Path(test_root).is_dir():
         test_root = args.data_path / "val"
     if args.recon_out is not None:
         test_ds = SliceDataset(Path(test_root), args.bvalue, transform,
-                               device=args.device)
+                               device=device)
         stacks = trainer.reconstruct(test_ds, out_dir=args.recon_out)
-        print(f"wrote {len(stacks)} reconstruction h5(s) -> "
-              f"{args.recon_out}")
+        if trainer.primary:
+            print(f"wrote {len(stacks)} reconstruction h5(s) -> "
+                  f"{args.recon_out}")
     return 0
 
 

@@ -204,25 +204,24 @@ class MRIKneePreprocessor:
         ``transfer_dtype="bfloat16"`` rounds each pair to bfloat16 on the
         host (round to nearest even), so the upload carries half the bytes,
         and upcasts it on the device: a bandwidth-for-accuracy trade, not
-        exact. ``devices``: a list of one device to run on; more than one
-        raises, since spreading volumes over cards is not ported."""
+        exact. ``devices``: volume ``i`` runs wholly on ``devices[i % n]``
+        (JAX ``:272-321``), its result left there; the chain is per volume,
+        so the results are those of per-volume calls. Each device's mask
+        kernels launch on that device (their wrappers enter it)."""
         if transfer_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"unsupported transfer_dtype {transfer_dtype!r}")
-        if devices and len(devices) > 1:
-            raise NotImplementedError(
-                "preprocess_volumes_pairs over more than one device is not "
-                "ported; pass one device or none")
-        dev = resolve_device(devices[0]) if devices else self.device
+        devs = ([resolve_device(d) for d in devices] if devices
+                else [self.device])
         link = torch.bfloat16 if transfer_dtype == "bfloat16" else (
             torch.float32)
         metas_list = metas_list or [None] * len(kspace_pairs)
         results = []
-        for pair, metas in zip(kspace_pairs, metas_list):
+        for i, (pair, metas) in enumerate(zip(kspace_pairs, metas_list)):
             self._kspace_stack(pair)
             host = torch.from_numpy(np.ascontiguousarray(pair, np.float32)
                                     ) if isinstance(pair, np.ndarray) else (
                 pair.cpu().float())
-            stack = host.to(link).to(dev).float()
+            stack = host.to(link).to(devs[i % len(devs)]).float()
             results.append(self._pack(stack, True, "kspace", metas))
         return results
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..native import import_h5py, load_h5_slab
+from ..parallel.mesh import volume_affine_shards
 from ..recon.dwi import trapezoidal_regridding
 
 _ISMRMRD_NS = "http://www.ismrm.org/ISMRMRD"
@@ -213,20 +214,12 @@ class FastMriDataModule:
                      if test_root.is_dir() else None)
 
     def val_shards(self, n_shards: int) -> List[np.ndarray]:
-        """The validation slices' indices on ``n_shards`` shards, whole
-        volumes a shard, the largest first. One shard only: several wait
-        for the parallel slice (ROADMAP.md Queue 1 item 7)."""
-        if n_shards != 1:
-            raise ValueError(f"val_shards({n_shards}): volume-affine "
-                             "sharded validation is not ported (ROADMAP.md "
-                             "Queue 1 item 7); the port validates on one "
-                             "shard")
-        starts: Dict[str, int] = {}
-        sizes: Dict[str, int] = {}
-        for i, (f, _, _) in enumerate(self.val.examples):
-            starts.setdefault(str(f), i)
-            sizes[str(f)] = sizes.get(str(f), 0) + 1
-        order = sorted(sizes, key=lambda f: -sizes[f])   # stable
-        return [np.asarray([i for f in order
-                            for i in range(starts[f], starts[f] + sizes[f])],
-                           np.int64)]
+        """The validation slices' indices on ``n_shards`` shards: whole
+        volumes a shard, the largest first onto the least loaded, each
+        shard padded to the longest by repeating its first entries
+        (``parallel/mesh.py:volume_affine_shards``; a volume's slices are
+        consecutive in ``val.examples``)."""
+        counts: Dict[str, int] = {}
+        for f, _, _ in self.val.examples:
+            counts[str(f)] = counts.get(str(f), 0) + 1
+        return volume_affine_shards(list(counts.values()), n_shards)

@@ -5,17 +5,21 @@ Counterpart: ``__graft_entry__.py`` at the repository root:
 
 - :func:`entry` (:30-44): the ResNet34-encoder U-Net in bf16 at 320x320,
   eval mode, with seeded random weights; returns ``(fn, example_args)``.
-- :func:`dryrun_multichip` (:47-176, :354-383): one data-parallel train
-  step and one validation of a narrow U-Net (ResNet18 encoder, 2.5-D
-  ``k = 3``, light augmentation, 32x32, a row-sharded slice store, two
-  samples a rank) on ``n`` ranks, and, for an even ``n``, one epoch of the
-  tiny ConvNeXt classifier with its batches split over the ranks; each
-  held to the same work on one device (the JAX tolerances: train loss
-  1e-4, validation loss 5e-4, classifier losses 1e-4), every rank to rank
-  0's result. The model-parallel parts of the JAX dry run (VarNet's
-  (data, coil) mesh and its pipeline, the depth-sharded 3-D U-Net and the
-  slice-sharded T2 recon) are not ported yet (ROADMAP.md Queue 1 item
-  7b): the dry run names them in its printout and in its result.
+- :func:`dryrun_multichip` (:47-176, :178-238, :354-411): one
+  data-parallel train step and one validation of a narrow U-Net (ResNet18
+  encoder, 2.5-D ``k = 3``, light augmentation, 32x32, a row-sharded slice
+  store, two samples a rank) on ``n`` ranks, and, for an even ``n``, one
+  epoch of the tiny ConvNeXt classifier with its batches split over the
+  ranks, one loss-and-gradient step of a one-cascade VarNet on a ``(data,
+  coil)`` grid of the ranks (``_dryrun_varnet_tp``: 4 coil ranks where
+  ``n`` is a multiple of 4, else 2) and the T2 recon with its slices
+  spread over ``n`` devices (``_dryrun_t2_sharded_recon``); each held to
+  the same work on one device (the JAX tolerances: train loss 1e-4,
+  validation loss 5e-4, classifier losses 1e-4, VarNet loss 1e-5 and
+  gradient drift 1e-3, T2 rtol / atol 1e-5), every rank to one device.
+  The point-to-point parts of the JAX dry run (VarNet's cascade pipeline,
+  the depth-sharded 3-D U-Net) are not ported yet (ROADMAP.md Queue 1 item
+  7b-ii): the dry run names them in its printout and in its result.
 
 The ranks take one card each over NCCL where there are ``n`` cards; where
 there are fewer, they share the cards over gloo and the printout says so.
@@ -33,18 +37,21 @@ import torch
 from .classify.trainer import ClassifierArgs, ClassifierTrainer
 from .data.hbm_loader import SliceStore, epoch_permutation
 from .models.factory import build_unet
+from .models.fastmri_unet import init_fastmri_weights
 from .models.unet2d import init_weights
-from .parallel.mesh import DataGroup, choose_backend, spawn
+from .parallel.mesh import (DataGroup, ReconGrid, choose_backend,
+                            grid_average, make_recon_grid, spawn)
+from .recon.t2 import t2_reconstruction
+from .recon.varnet import VarNet
 from .train.engine import Engine
 from .train.losses import LossManager
 from .train.optim import make_optimizer
 from .utils.device import f32_on_card, resolve_device
 
-NOT_PORTED = ("varnet (data, coil) tensor parallel",
-              "varnet cascade pipeline (GPipe)",
-              "unet3d depth-sharded spatial parallel",
-              "t2 slice-sharded recon")
+NOT_PORTED = ("varnet cascade pipeline (GPipe)",
+              "unet3d depth-sharded spatial parallel")
 TRAIN_TOL, VAL_TOL, CLASSIFY_TOL = 1e-4, 5e-4, 1e-4
+VARNET_LOSS_TOL, VARNET_DRIFT_TOL, T2_TOL = 1e-5, 1e-3, 1e-5
 
 
 def entry(device: str | torch.device = "cuda"
@@ -132,13 +139,69 @@ def _classifier_epoch(world: int, dev: torch.device,
     return {"train_loss": h["train_loss"], "val_loss": h["val_loss"]}
 
 
+def varnet_grid_shape(n: int) -> Tuple[int, int]:
+    """``(n_data, n_coil)`` of the dry run's VarNet grid on ``n`` ranks."""
+    n_coil = 4 if n % 4 == 0 else 2
+    return n // n_coil, n_coil
+
+
+def _varnet_tp(n_devices: int, dev: torch.device,
+               grid: Optional[ReconGrid]) -> Dict[str, object]:
+    """One loss-and-gradient step of a one-cascade f32 VarNet, ``loss =
+    mean(|image|^2)`` over the global batch, on ``grid`` (its gradients
+    averaged over the grid) or on one device."""
+    n_data, n_coil = varnet_grid_shape(n_devices)
+    rng = np.random.default_rng(3)
+    shape = (max(2, n_data), 2 * n_coil, 1, 16, 16, 2)
+    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    model = VarNet(aves=1, num_cascades=1, sens_chans=4, sens_pools=2,
+                   chans=4, pools=2, mesh=grid)
+    init_fastmri_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    params = dict(model.named_parameters())
+    with f32_on_card(dev):
+        out = model(k.to(dev), e.to(dev))
+        loss = torch.mean(out * out)
+        grads = list(torch.autograd.grad(loss, list(params.values())))
+        if grid is not None:
+            *grads, loss = grid_average(grads + [loss.detach()], grid)
+    return {"loss": float(loss.detach()),
+            "grads": {n: g.detach().cpu().numpy()
+                      for n, g in zip(params, grads)}}
+
+
+def _t2_sharded(devices: List[torch.device]) -> float:
+    """The T2 recon of a seeded 2-slice case with its slices spread over
+    ``devices`` against ``devices[0]`` alone; the largest difference."""
+    rng = np.random.default_rng(8)
+    s, c, h, w = 2, 2, 24, 20
+    full = (rng.standard_normal((s, c, h, w))
+            + 1j * rng.standard_normal((s, c, h, w)))
+    under = full.copy()
+    under[..., 1::2] = 0
+    under[..., w // 2 - 4:w // 2 + 4] = full[..., w // 2 - 4:w // 2 + 4]
+    kspace = np.stack([under] * 3)                  # (avg = 3, S, C, H, W)
+    calib = full[..., w // 2 - 6:w // 2 + 6]        # (S, C, H, 12)
+    want = t2_reconstruction(kspace, calib, device=devices[0])
+    got = t2_reconstruction(kspace, calib, mesh=devices, device=devices[0])
+    np.testing.assert_allclose(got["reconstruction_rss"],
+                               want["reconstruction_rss"], rtol=T2_TOL,
+                               atol=T2_TOL)
+    return float(np.abs(got["reconstruction_rss"]
+                        - want["reconstruction_rss"]).max())
+
+
 def dryrun_rank(group: DataGroup, classify: bool) -> Dict[str, dict]:
     """The dry run's work on one rank of its group: the U-Net step and
-    validation, and the classifier's epoch where ``classify``."""
+    validation, and, where ``classify`` (an even world), the classifier's
+    epoch and the VarNet step on a ``(data, coil)`` grid of the ranks."""
     out = {"unet": _unet_step(group.world, group.device, group)}
     if classify:
         out["classifier"] = _classifier_epoch(group.world, group.device,
                                               group)
+        grid = make_recon_grid(group, *varnet_grid_shape(group.world))
+        out["varnet_tp"] = _varnet_tp(group.world, group.device, grid)
     return out
 
 
@@ -184,18 +247,54 @@ def dryrun_check(ranks: List[dict], devices: List[torch.device],
           f"train_loss={ur['train_loss']:.6f} "
           f"val_loss={ur['val_loss']:.6f} (sharded == replicated within "
           f"{TRAIN_TOL}/{VAL_TOL})", flush=True)
+    ran = ["unet_dp_sharded_store"]
     if classify:
         c, cr = ranks[0]["classifier"], ref["classifier"]
         print(f"dryrun_classifier_dp({n_devices} ranks): "
               f"train_loss={c['train_loss']:.6f} "
               f"val_loss={c['val_loss']:.6f} == one device "
               f"{cr['train_loss']:.6f}/{cr['val_loss']:.6f}", flush=True)
+        ref["varnet_tp"] = _check_varnet_tp(ranks, devices[0])
+        ranks = [{**r, "varnet_tp": {"loss": r["varnet_tp"]["loss"]}}
+                 for r in ranks]
+        ref["t2_sharded_recon"] = {"max_abs_diff": _t2_sharded(devices)}
+        print(f"dryrun_t2_sharded_recon({n_devices}-way slice mesh): "
+              f"reconstruction_rss == unsharded (max difference "
+              f"{ref['t2_sharded_recon']['max_abs_diff']:.1e}, rtol / atol "
+              f"{T2_TOL})", flush=True)
+        ran += ["classifier_dp", "varnet_tp", "t2_sharded_recon"]
     print(f"dryrun_multichip({n_devices}) not ported yet (ROADMAP.md Queue "
-          f"1 item 7b): {', '.join(NOT_PORTED)}", flush=True)
-    return {"ran": ["unet_dp_sharded_store"]
-            + (["classifier_dp"] if classify else []),
-            "where": where, "backend": backend, "ranks": ranks[0],
-            "one_device": ref, "not_ported": list(NOT_PORTED)}
+          f"1 item 7b-ii): {', '.join(NOT_PORTED)}", flush=True)
+    return {"ran": ran, "where": where, "backend": backend,
+            "ranks": ranks[0], "one_device": ref,
+            "not_ported": list(NOT_PORTED)}
+
+
+def _check_varnet_tp(ranks: List[dict], dev: torch.device) -> dict:
+    """Hold every rank's grid VarNet step to one device: the loss within
+    VARNET_LOSS_TOL, each gradient's relative distance (by norm) within
+    VARNET_DRIFT_TOL, as JAX's ``_dryrun_varnet_tp`` holds them."""
+    n = len(ranks)
+    want = _varnet_tp(n, dev, None)
+    drift = 0.0
+    for r, got in enumerate(ranks):
+        got = got["varnet_tp"]
+        if not abs(got["loss"] - want["loss"]) < VARNET_LOSS_TOL:
+            raise AssertionError(f"dryrun_varnet_tp rank {r}: loss "
+                                 f"{got['loss']!r} != one device "
+                                 f"{want['loss']!r}")
+        for name, g in want["grads"].items():
+            d = float(np.linalg.norm(got["grads"][name] - g)
+                      / (np.linalg.norm(g) + 1e-8))
+            drift = max(drift, d)
+    if not drift < VARNET_DRIFT_TOL:
+        raise AssertionError(f"dryrun_varnet_tp: gradient drift "
+                             f"{drift:.2e} >= {VARNET_DRIFT_TOL}")
+    n_data, n_coil = varnet_grid_shape(n)
+    print(f"dryrun_varnet_tp({n_data}x{n_coil} data x coil): "
+          f"loss={ranks[0]['varnet_tp']['loss']:.6f} == one device "
+          f"{want['loss']:.6f}, max grad drift {drift:.1e}", flush=True)
+    return {"loss": want["loss"], "max_grad_drift": drift}
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:

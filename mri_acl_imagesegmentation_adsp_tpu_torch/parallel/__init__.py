@@ -1,17 +1,19 @@
-"""Data parallelism over ranks of ``torch.distributed`` (the JAX package's
-``parallel/mesh.py``); the model-parallel parts of its ``parallel/`` are
-not ported yet."""
+"""Data and coil parallelism over ranks of ``torch.distributed`` (the JAX
+package's ``parallel/mesh.py``); its point-to-point parts
+(``parallel/pipeline.py``, ``parallel/spatial.py``) are not ported yet."""
 
 from .mesh import (
-    DataGroup, all_reduce_, all_reduce_sum, any_rank, average_flat,
-    barrier, choose_backend, distributed_init, env_group,
-    gather_rows, host_major_grid, make_mesh, mesh_devices, row_slice,
-    shard_rows, spawn, volume_affine_shards)
+    DataGroup, ReconGrid, all_reduce_, all_reduce_sum, any_rank,
+    average_flat, barrier, choose_backend, distributed_init, env_group,
+    gather_rows, grid_average, host_major_grid, make_mesh, make_recon_grid,
+    mesh_devices, row_slice, shard_dim, shard_rows, spawn,
+    volume_affine_shards)
 
 __all__ = [
-    "DataGroup", "all_reduce_", "all_reduce_sum", "any_rank",
+    "DataGroup", "ReconGrid", "all_reduce_", "all_reduce_sum", "any_rank",
     "average_flat", "barrier", "choose_backend",
-    "distributed_init", "env_group", "gather_rows", "host_major_grid",
-    "make_mesh", "mesh_devices", "row_slice", "shard_rows", "spawn",
+    "distributed_init", "env_group", "gather_rows", "grid_average",
+    "host_major_grid", "make_mesh", "make_recon_grid", "mesh_devices",
+    "row_slice", "shard_dim", "shard_rows", "spawn",
     "volume_affine_shards",
 ]

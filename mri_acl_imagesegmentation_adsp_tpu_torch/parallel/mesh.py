@@ -1,10 +1,11 @@
-"""Data parallelism over ranks of ``torch.distributed``: the rank group, its
-collectives, the row-sharding rule and the rank launcher.
+"""Data and coil parallelism over ranks of ``torch.distributed``: the rank
+group, the ``(data, coil)`` grid of sub-groups, their collectives, the
+divisible sharding rule and the rank launcher.
 
 Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/parallel/mesh.py``:
-``make_mesh`` (:28-33), ``distributed_init`` (:60-79), ``host_major_grid``
-(:82-103), ``divisible_spec`` (:122-140) and ``volume_affine_shards``
-(:148-172). The JAX package shards a global-view array over a device mesh
+``make_mesh`` (:28-33), ``make_recon_mesh`` (:36-53), ``distributed_init``
+(:60-79), ``host_major_grid`` (:82-103), ``divisible_spec`` (:122-140) and
+``volume_affine_shards`` (:148-172). The JAX package shards a global-view array over a device mesh
 and XLA inserts every cross-device sum. Here one process drives one device
 (a rank), and every sum over the global batch is an explicit collective:
 
@@ -14,7 +15,12 @@ and XLA inserts every cross-device sum. Here one process drives one device
   world divides is cut into equal contiguous shares, rank ``r`` holding
   the ``r``-th; any other batch stays whole on every rank (replicated),
   and the caller then bypasses the collectives, or every sum would count
-  the batch ``world`` times.
+  the batch ``world`` times. :func:`shard_dim` is the same rule on any
+  axis and any group.
+- :class:`ReconGrid` is ``make_recon_mesh``'s ``(data, coil)`` grid: rank
+  ``d * n_coil + c`` holds data block ``d`` and coil block ``c``, and
+  :func:`make_recon_grid` gives it a data sub-group (the ranks of its coil
+  block) and a coil sub-group (the ranks of its data block).
 - :func:`all_reduce_sum` is differentiable: its backward pass all-reduces
   the upstream gradient too. A rank whose loss holds a global term (a
   BatchNorm statistic, a Dice sum) then receives the gradient of every
@@ -222,6 +228,82 @@ def volume_affine_shards(vol_sizes: Sequence[int], n_shards: int
             arr = np.concatenate([arr, np.resize(arr, max_len - len(arr))])
         out.append(arr)
     return out
+
+
+def shard_dim(x: torch.Tensor, dim: int, group: Optional[DataGroup]
+              ) -> torch.Tensor:
+    """``divisible_spec`` on axis ``dim``: this rank's contiguous block of
+    ``x`` along ``dim``, or the whole ``x`` where the group does not divide
+    that axis (or there is no group)."""
+    part = row_slice(int(x.shape[dim]), group)
+    if part is None:
+        return x
+    return x.narrow(dim, part.start, part.stop - part.start)
+
+
+# ---------------------------------------------------------------------------
+# The (data, coil) grid
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ReconGrid:
+    """One rank's handle on a ``(data, coil)`` grid of ranks, laid out
+    data-major: rank ``d * n_coil + c``. ``data`` joins the ``n_data`` ranks
+    of coil block ``c`` (the ranks that hold other rows of the batch),
+    ``coil`` the ``n_coil`` ranks of data block ``d`` (the ranks that hold
+    other coils of the same rows); a sub-group of one rank is None, so its
+    sums are no-ops."""
+    world: DataGroup
+    data: Optional[DataGroup]
+    coil: Optional[DataGroup]
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def primary(self) -> bool:
+        return self.world.primary
+
+
+def make_recon_grid(group: DataGroup, n_data: int, n_coil: int
+                    ) -> ReconGrid:
+    """This rank's place on the ``(n_data, n_coil)`` grid over ``group``
+    and its two sub-groups. ``dist.new_group`` is collective over the
+    default group, so every rank makes every sub-group, in one order, also
+    those it is not a member of."""
+    if n_data < 1 or n_coil < 1 or n_data * n_coil != group.world:
+        raise ValueError(f"a ({n_data}, {n_coil}) grid needs "
+                         f"{n_data * n_coil} ranks, the group has "
+                         f"{group.world}")
+    d, c = divmod(group.rank, n_coil)
+
+    def sub(lines: List[List[int]], mine: int) -> Optional[DataGroup]:
+        if len(lines[0]) == 1:
+            return None
+        pgs = [dist.new_group(ranks, backend=group.backend)
+               for ranks in lines]
+        return DataGroup(len(lines[mine]), lines[mine].index(group.rank),
+                         group.device, pgs[mine], group.backend)
+
+    coil = sub([[dd * n_coil + cc for cc in range(n_coil)]
+                for dd in range(n_data)], d)
+    data = sub([[dd * n_coil + cc for dd in range(n_data)]
+                for cc in range(n_coil)], c)
+    return ReconGrid(group, data, coil)
+
+
+def grid_average(tensors: Sequence[torch.Tensor], grid: ReconGrid
+                 ) -> List[torch.Tensor]:
+    """The gradient rule of a grid step: the mean over every rank of the
+    grid. Each coil rank computes the same loss, and the coil sums'
+    backward sums the upstream gradient over the coil sub-group, so a
+    rank's gradient is that of the sum of its coil ranks' losses with
+    respect to its own copy of the weights: their mean over the coil ranks
+    is the loss's gradient, and the mean over the data ranks then that of
+    the global batch. A mean over the data sub-group alone leaves the coil
+    ranks' gradients unequal."""
+    return average_flat(tensors, grid.world)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ from ..ops.cpair import to_complex, to_pair_device
 from ..ops.fftc import complex_abs
 from ..utils.device import f32_on_card, resolve_device
 from .cartesian import center_crop_im, flip_im, ifftnd_scaled
-from .grappa import STAGE_COPIES, Grappa, refuse_mesh
+from .grappa import STAGE_COPIES, Grappa
 
 # EPI readout constants of the fastMRI-prostate acquisition: ADC samples
 # and ADC duration in us
@@ -244,10 +244,10 @@ def _dwi_upload(kspace: np.ndarray, grid_mat: np.ndarray,
 
 def _dwi_magnitudes(k_g: torch.Tensor, coil_sens_maps: np.ndarray,
                     grappa: Grappa, weights: list,
-                    max_stage_bytes: float) -> np.ndarray:
+                    max_stage_bytes: float, mesh=None) -> np.ndarray:
     """GRAPPA, iFFT, the conjugate-sensitivity combine and the magnitude in
-    chunks of slices on the device; one ``(A, S, ro, pe)`` float32
-    download."""
+    chunks of slices on the device (each chunk's hole-fill spread over
+    ``mesh``'s devices); one ``(A, S, ro, pe)`` float32 download."""
     n_avg, n_slices, n_pe, n_coils, n_ro = k_g.shape
     sens_conj = torch.view_as_complex(to_pair_device(
         np.ascontiguousarray(coil_sens_maps), device=k_g.device)).conj()
@@ -258,7 +258,7 @@ def _dwi_magnitudes(k_g: torch.Tensor, coil_sens_maps: np.ndarray,
         s_hi = min(s_lo + chunk, n_slices)
         filled = grappa.apply_weights_pair_multi(
             k_g[:, s_lo:s_hi].transpose(0, 1),
-            weights[s_lo:s_hi])                    # (cs, A, pe, C, ro)
+            weights[s_lo:s_hi], mesh)              # (cs, A, pe, C, ro)
         img = ifftnd_scaled(filled.permute(1, 0, 3, 4, 2), [-2, -1])
         comb = torch.sum(img * sens_conj[None, s_lo:s_hi], dim=2)
         mags.append(complex_abs(comb))             # (A, cs, ro, pe)
@@ -293,14 +293,14 @@ def dwi_reconstruction(kspace: np.ndarray, calibration: np.ndarray,
     with the conjugate sensitivities and the magnitude stay on ``device``,
     and one float32 ``(averages, slices, ro, pe)`` volume comes back for
     the host metrics. ``transfer_dtype="bfloat16"`` rounds the k-space
-    upload (the calibration and the sensitivities stay f32); ``mesh`` is
-    refused (ROADMAP.md Queue 1 item 7)."""
-    refuse_mesh(mesh)
+    upload (the calibration and the sensitivities stay f32); ``mesh``: a
+    sequence of devices over which each chunk's hole-fill spreads its
+    slices, the chunk sized by one card's budget."""
     dev = resolve_device(device)
     grid_mat = get_grid_mat(hdr).astype(np.float32)
     grappa, weights = _dwi_weights(kspace, calibration, hdr, grid_mat, dev)
     with f32_on_card(dev):
         img_vol = _dwi_magnitudes(
             _dwi_upload(kspace, grid_mat, transfer_dtype, dev),
-            coil_sens_maps, grappa, weights, max_stage_bytes)
+            coil_sens_maps, grappa, weights, max_stage_bytes, mesh)
     return _dwi_maps(img_vol)

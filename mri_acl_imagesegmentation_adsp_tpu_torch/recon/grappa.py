@@ -24,11 +24,18 @@ the same class surface (``Grappa(kspace, kernel_size, coil_axis)``,
 
 Matmuls and convolutions run with TF32 off (``utils/device.py:
 f32_on_card``), as the JAX version runs them at ``Precision.HIGHEST``.
+
+Slices are independent, so ``apply_weights_pair_multi(mesh=devices)`` (JAX
+``:348-414``, a ``shard_map`` over the slices) cuts them into contiguous
+shares, one a device, runs the plain fill on each device and gathers the
+shares in slice order on the input's device; no collective. A count the
+devices do not divide gives the first shares one slice more (JAX pads
+with repeats of the last slice instead, a lowering detail).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,17 +47,22 @@ from ..utils.device import f32_on_card, resolve_device
 
 # device copies of a chunk's k-space that stay live in the hole-fill
 # (input, padded real channels, output, one geometry's convolution, the
-# sum): the T2 and DWI pipelines size their chunks of slices by it
+# sum): the T2 and DWI pipelines size their chunks of slices by it, by one
+# card's budget also over a mesh (shards that share a card share its
+# budget, and the chunk's later stages run on the case's device)
 STAGE_COPIES = 8
 
-MESH_REFUSAL = ("mesh= (slices sharded over several cards) is not ported; "
-                "it waits for ROADMAP.md Queue 1 item 7 (parallelism)")
 
-
-def refuse_mesh(mesh) -> None:
-    """Raise for any ``mesh`` but None."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+def slice_shares(n: int, parts: int) -> List[slice]:
+    """``n`` slices in ``parts`` contiguous shares, the first ``n % parts``
+    one longer (``np.array_split``'s rule)."""
+    base, extra = divmod(n, parts)
+    out, at = [], 0
+    for i in range(parts):
+        size = base + (i < extra)
+        out.append(slice(at, at + size))
+        at += size
+    return out
 
 
 def _as_complex(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -287,9 +299,20 @@ class Grappa:
         ``kspace_pair``: ``(S, B, ...)``, slices first, then the batch of
         each slice (such as its averages), elements as in
         ``apply_weights_pair``; ``weights_per_slice``: ``S`` weight dicts
-        (a sequence, or a dict by slice). ``mesh`` is refused: sharding
-        slices over cards waits for ROADMAP.md Queue 1 item 7."""
-        refuse_mesh(mesh)
+        (a sequence, or a dict by slice). ``mesh``: a sequence of devices
+        to spread the slices over (module docstring); the result is on
+        ``kspace_pair``'s device."""
+        if mesh is not None:
+            devices = [torch.device(d) for d in mesh]
+            outs = []
+            for dev, part in zip(devices, slice_shares(
+                    int(kspace_pair.shape[0]), len(devices))):
+                if part.stop > part.start:
+                    outs.append(self.apply_weights_pair_multi(
+                        kspace_pair[part].to(dev, non_blocking=True),
+                        [weights_per_slice[i]
+                         for i in range(part.start, part.stop)]))
+            return torch.cat([o.to(kspace_pair.device) for o in outs])
         k, pair = _as_complex(kspace_pair)
         ax, k = self._element_coils_last(k, 2)         # (S, B, X, Y, nc)
         s, b, x, y, nc = k.shape

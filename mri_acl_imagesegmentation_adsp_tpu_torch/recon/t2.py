@@ -22,7 +22,7 @@ from ..ops.cpair import to_pair_device
 from ..ops.fftc import rss_complex
 from ..utils.device import f32_on_card, resolve_device
 from .cartesian import center_crop_im, ifftnd_scaled
-from .grappa import STAGE_COPIES, Grappa, refuse_mesh
+from .grappa import STAGE_COPIES, Grappa
 
 # device bytes a chunk of slices may take in the hole-fill (STAGE_COPIES
 # copies of its k-space): 16 GB holds a whole protocol case (10 slices of
@@ -119,10 +119,11 @@ def _t2_upload(kspace_data: np.ndarray, transfer_dtype: Optional[str],
 
 
 def _t2_fill(k: torch.Tensor, grappas: tuple, weights: tuple,
-             max_stage_bytes: float) -> torch.Tensor:
+             max_stage_bytes: float, mesh=None) -> torch.Tensor:
     """The hole-fill of ``k`` ``(avg, slice, pe, coils, ro)``: averages 0
     and 2 with the first geometry's weights, average 1 with the second's,
-    in chunks of slices; returns ``(3, slice, coils, ro, pe)``."""
+    in chunks of slices, each chunk's slices spread over ``mesh``'s
+    devices; returns ``(3, slice, coils, ro, pe)``."""
     _, num_slices, pe, coils, ro = k.shape
     slice_bytes = 2 * coils * ro * pe * 8              # two averages
     chunk = max(1, int(max_stage_bytes // (slice_bytes * STAGE_COPIES)))
@@ -130,9 +131,9 @@ def _t2_fill(k: torch.Tensor, grappas: tuple, weights: tuple,
     for lo in range(0, num_slices, chunk):
         hi = min(lo + chunk, num_slices)
         f02_parts.append(grappas[0].apply_weights_pair_multi(
-            k[0:3:2, lo:hi].transpose(0, 1), weights[0][lo:hi]))
+            k[0:3:2, lo:hi].transpose(0, 1), weights[0][lo:hi], mesh))
         f1_parts.append(grappas[1].apply_weights_pair_multi(
-            k[1:2, lo:hi].transpose(0, 1), weights[1][lo:hi]))
+            k[1:2, lo:hi].transpose(0, 1), weights[1][lo:hi], mesh))
     f02 = torch.cat(f02_parts)                         # (S, 2, pe, C, ro)
     f1 = torch.cat(f1_parts)
     del f02_parts, f1_parts
@@ -170,21 +171,22 @@ def t2_reconstruction(kspace_data: np.ndarray, calib_data: np.ndarray,
     ``hdr`` is an ISMRMRD XML string (or bytes) or an explicit padding;
     None pads nothing. ``transfer_dtype="bfloat16"`` rounds the k-space
     upload to bfloat16 (about 0.4 % relative; the calibration and the
-    weight solves stay f32). ``mesh`` is refused (ROADMAP.md Queue 1 item
-    7). ``max_stage_bytes`` bounds the device bytes of a chunk of slices in
-    the hole-fill.
+    weight solves stay f32). ``mesh``: a sequence of devices over which
+    each chunk's hole-fill spreads its slices (``Grappa.
+    apply_weights_pair_multi``); the rest runs on ``device``.
+    ``max_stage_bytes`` bounds the device bytes of a chunk of slices in the
+    hole-fill, on each card.
 
     The k-space goes up once, as its contiguous buffer, and is reordered
     on the device; the hole-fill, the zero-pad, the iFFT, RSS and flip,
     the mean over averages and the crop stay there, and only the result
     comes back. Matmuls and convolutions run with TF32 off."""
-    refuse_mesh(mesh)
     dev = resolve_device(device)
     grappas = _t2_geometry(kspace_data, dev)
     weights = _t2_weights(grappas, calib_data)
     padding = _padding(hdr)
     with f32_on_card(dev):
         k_post = _t2_fill(_t2_upload(kspace_data, transfer_dtype, dev),
-                          grappas, weights, max_stage_bytes)
+                          grappas, weights, max_stage_bytes, mesh)
         out = _t2_image(k_post, padding)
         return {"reconstruction_rss": out.cpu().numpy()}

@@ -39,10 +39,21 @@ by ``torch.autocast``'s op lists, which would keep the elementwise state in
 f32). With ``dtype=float64`` every f32 place above is float64: the tests'
 reference run.
 
-The JAX module's coil-parallel layout (``mesh``, ``_constrain``) and its
-phase-space U-Net lowering (``phase_max_chans``, the same function) have no
-counterpart here; the multi-device layouts wait for the parallel slice
-(ROADMAP.md Queue 1 item 7).
+The coil-parallel layout (JAX ``:272-288``, ``_constrain`` at :40-53):
+``VarNet(mesh=grid)`` with a ``parallel/mesh.py:ReconGrid`` takes the
+global batch and keeps this rank's block of it, its rows of the data
+sub-group's split and its coils of the coil sub-group's (each by the
+divisible rule: an axis the sub-group does not divide stays whole). The
+k-space, the ESPIRiT maps, the sensitivities and the cascade state are
+then the rank's coils only; the three coil sums (the sensitivity model's
+RSS, each cascade's ``sens_reduce_parts`` and the final combine) are
+completed by ``all_reduce_sum`` over the coil sub-group, in ``acc_dtype``
+across the ranks as within a rank, and cast after it. The combined image
+and the regularizer U-Nets are computed again on every coil rank, as in
+JAX. With coils the coil sub-group does not divide, nothing is summed
+across ranks. The output is the rank's rows. ``mesh=None`` is the one-device
+model. The JAX module's phase-space U-Net lowering (``phase_max_chans``,
+the same function) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.fastmri_unet import FastMRIUnet
+from ..parallel.mesh import DataGroup, ReconGrid, all_reduce_sum, shard_dim
 
 Parts = Tuple[torch.Tensor, torch.Tensor]
 
@@ -150,7 +162,10 @@ class SensitivityModel(nn.Module):
         self.norm_unet = NormUnet(chans, num_pools, 2 * aves, drop_prob,
                                   dtype)
 
-    def forward(self, er: torch.Tensor, ei: Optional[torch.Tensor] = None):
+    def forward(self, er: torch.Tensor, ei: Optional[torch.Tensor] = None,
+                coil: Optional[DataGroup] = None):
+        """``coil``: the sub-group holding the other coils of these rows,
+        over which the RSS's sum is completed."""
         pair_in = ei is None
         if pair_in:
             er, ei = er[..., 0], er[..., 1]
@@ -158,23 +173,29 @@ class SensitivityModel(nn.Module):
         xr, xi = self.norm_unet(er.reshape(b * c, 1, a, h, w),
                                 ei.reshape(b * c, 1, a, h, w))
         xr, xi = xr.reshape(b, c, a, h, w), xi.reshape(b, c, a, h, w)
-        rss = torch.sqrt(torch.sum(xr * xr + xi * xi, dim=1))[:, None]
+        sq = torch.sum(xr * xr + xi * xi, dim=1, dtype=acc_dtype(xr.dtype))
+        rss = torch.sqrt(all_reduce_sum(sq, coil)).to(xr.dtype)[:, None]
         xr, xi = xr / rss, xi / rss
         if pair_in:
             return torch.stack([xr, xi], dim=-1)
         return xr, xi
 
 
-def sens_reduce_parts(kr, ki, sr, si) -> Parts:
+def sens_reduce_parts(kr, ki, sr, si,
+                      coil: Optional[DataGroup] = None) -> Parts:
     """``S^H F^-1 k`` summed over coils: parts ``(b, c, a, h, w)`` -> ``(b,
-    a, h, w)``; the coil sum accumulates in f32 and returns in the dtype of
-    the products (f32: the FFT's output is)."""
+    a, h, w)``; the coil sum accumulates in f32, is completed over the
+    ``coil`` sub-group (one all-reduce of both parts) and returns in the
+    dtype of the products (f32: the FFT's output is)."""
     ir, ii = ifft2c_parts(kr, ki)
     rr = ir * sr + ii * si              # (ir + i ii) * conj(sr + i si)
     ri = ii * sr - ir * si
     dt = rr.dtype
-    return (rr.sum(dim=1, dtype=acc_dtype(dt)).to(dt),
-            ri.sum(dim=1, dtype=acc_dtype(dt)).to(dt))
+    rr, ri = rr.sum(dim=1, dtype=acc_dtype(dt)), ri.sum(dim=1,
+                                                        dtype=acc_dtype(dt))
+    if coil is not None:
+        rr, ri = all_reduce_sum(torch.stack([rr, ri]), coil).unbind(0)
+    return rr.to(dt), ri.to(dt)
 
 
 def sens_expand_parts(xr, xi, sr, si) -> Parts:
@@ -208,14 +229,17 @@ class VarNetBlock(nn.Module):
         self.dc_weight = nn.Parameter(torch.ones(1))
         self.norm_unet = NormUnet(chans, pools, 2 * aves, dtype=dtype)
 
-    def forward(self, kr, ki, k0r, k0i, sr, si) -> Parts:
+    def forward(self, kr, ki, k0r, k0i, sr, si,
+                coil: Optional[DataGroup] = None) -> Parts:
         dt = kr.dtype
         dcw = self.dc_weight.to(dt)
         # the sampling mask per component: the reference takes ref != 0 on
         # its (..., 2) pair, i.e. on re and im apart
         dcr = torch.where(k0r != 0, kr - k0r, 0.0) * dcw
         dci = torch.where(k0i != 0, ki - k0i, 0.0) * dcw
-        xr, xi = sens_reduce_parts(kr, ki, sr, si)
+        # the cascade's one coil sum; the image and the regularizer are
+        # then the same on every coil rank
+        xr, xi = sens_reduce_parts(kr, ki, sr, si, coil)
         rr, ri = self.norm_unet(xr[:, None], xi[:, None])
         er, ei = sens_expand_parts(rr[:, 0].to(dt), ri[:, 0].to(dt), sr, si)
         return kr - dcr - er.to(dt), ki - dci - ei.to(dt)
@@ -224,14 +248,18 @@ class VarNetBlock(nn.Module):
 class VarNet(nn.Module):
     """The full network: ``forward(kspace, espirit)`` with k-space ``(b,
     coils, aves, h, w, 2)`` and maps ``(b, coils, sens_aves, h, w, 2)``
-    returns ``|image|`` ``(b, aves, h, w)`` in f32."""
+    returns ``|image|`` ``(b, aves, h, w)`` in f32. With a ``mesh`` (a
+    ``ReconGrid``) both are the global batch and the result is this rank's
+    rows of it (module docstring)."""
 
     def __init__(self, aves: int, sens_aves: int = 1, num_cascades: int = 12,
                  sens_chans: int = 8, sens_pools: int = 4, chans: int = 18,
-                 pools: int = 4, dtype: torch.dtype = torch.float32):
+                 pools: int = 4, dtype: torch.dtype = torch.float32,
+                 mesh: Optional[ReconGrid] = None):
         super().__init__()
         self.aves, self.sens_aves = int(aves), int(sens_aves)
         self.dtype = dtype
+        self.mesh = mesh
         self.sens_net = SensitivityModel(sens_chans, sens_pools, sens_aves,
                                          dtype=dtype)
         self.cascades = nn.ModuleList([
@@ -241,15 +269,24 @@ class VarNet(nn.Module):
     def forward(self, kspace: torch.Tensor, espirit: torch.Tensor
                 ) -> torch.Tensor:
         acc = acc_dtype(self.dtype)
+        coil = None
+        if self.mesh is not None:
+            kspace = shard_dim(kspace, 0, self.mesh.data)
+            espirit = shard_dim(espirit, 0, self.mesh.data)
+            coil = self.mesh.coil
+            if coil is not None and kspace.shape[1] % coil.world:
+                coil = None             # uneven coils: replicated, no sums
+            kspace = shard_dim(kspace, 1, coil)
+            espirit = shard_dim(espirit, 1, coil)
         e32 = espirit.to(acc)
-        sr, si = self.sens_net(e32[..., 0], e32[..., 1])
+        sr, si = self.sens_net(e32[..., 0], e32[..., 1], coil)
         kr = kspace[..., 0].to(self.dtype).contiguous()
         ki = kspace[..., 1].to(self.dtype).contiguous()
         k0r, k0i = kr, ki
         sr, si = sr.to(self.dtype), si.to(self.dtype)
         for block in self.cascades:
-            kr, ki = block(kr, ki, k0r, k0i, sr, si)
-        rr, ri = sens_reduce_parts(kr, ki, sr, si)
+            kr, ki = block(kr, ki, k0r, k0i, sr, si, coil)
+        rr, ri = sens_reduce_parts(kr, ki, sr, si, coil)
         rr, ri = rr.to(acc), ri.to(acc)
         return torch.sqrt(rr * rr + ri * ri)
 

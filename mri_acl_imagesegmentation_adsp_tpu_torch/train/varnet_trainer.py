@@ -27,9 +27,21 @@ f32 on a card, TF32 off (``utils/device.py:f32_on_card``), as the committed
 f32 reference run computed on the CPU. The losses stay on the device and
 are read once an epoch; ``validate`` reads its metrics once too.
 
-Refused, naming what stands in: ``mesh`` / ``pipe_mesh`` (the coil-parallel
-and GPipe layouts, ROADMAP.md Queue 1 item 7), ``ckpt_backend="orbax"``
-and ``ckpt_async`` (JAX libraries; the port's own snapshots,
+``mesh``: a ``parallel/mesh.py:ReconGrid``, this rank's place on a ``(data,
+coil)`` grid of ranks (JAX ``_init_if_needed`` / ``_place_batch``,
+:109-185). The weights are replicated (every rank draws them from the one
+seed); every rank reads the same samples in the same order, so the ranks
+agree on each global batch, of which the model keeps the rank's block
+(``recon/varnet.py``) and the loss the rank's rows. The gradients and the
+loss are then averaged over the whole grid (``grid_average``: the coil
+ranks' gradients are each that of the sum of their losses), so every
+rank takes the same step. ``validate`` and ``reconstruct`` run on the grid
+too: a sample is a batch of one, whole on every data rank and split over
+the coil ranks. Rank 0 writes the run's files.
+
+Refused, naming what stands in: ``pipe_mesh`` (the cascade pipeline, point
+to point, ROADMAP.md Queue 1 item 7b-ii), ``ckpt_backend="orbax"`` and
+``ckpt_async`` (JAX libraries; the port's own snapshots,
 ``train/checkpoint.py``, take their place).
 """
 
@@ -46,6 +58,8 @@ import torch
 from ..data.prefetch import prefetch
 from ..data.transforms import center_crop, center_crop_to_smallest
 from ..models.fastmri_unet import init_fastmri_weights
+from ..parallel.mesh import (ReconGrid, any_rank, barrier, grid_average,
+                             row_slice)
 from ..recon.varnet import VarNet
 from ..utils.device import f32_on_card, resolve_device, upload
 from . import checkpoint as ckpt_lib
@@ -105,12 +119,11 @@ def build_varnet_from_args(a, aves: Optional[int] = None, sens_aves: int = 1,
     fields it has beyond them are ignored. ``aves`` (the k-space's averages)
     defaults to the b-value's (b50: 3, b1000: 12); another b-value must name
     it. ``sens_aves`` is the ESPIRiT maps' averages (1 from the per-slice
-    dataset). A ``mesh`` is refused: the coil-parallel layout waits for
-    ROADMAP.md Queue 1 item 7."""
-    if mesh is not None:
-        raise ValueError("a (data, coil) mesh is not ported: the coil-"
-                         "parallel VarNet waits for the parallel slice "
-                         "(ROADMAP.md Queue 1 item 7)")
+    dataset). ``mesh``: a ``ReconGrid`` for the coil-parallel layout
+    (``recon/varnet.py``)."""
+    if mesh is not None and not isinstance(mesh, ReconGrid):
+        raise TypeError(f"mesh must be a parallel.mesh.ReconGrid, got "
+                        f"{type(mesh).__name__}")
     if not isinstance(a, VarNetArgs):
         known = {f.name for f in dc_fields(VarNetArgs)}
         a = VarNetArgs(**{k: v for k, v in dict(a).items() if k in known})
@@ -122,16 +135,19 @@ def build_varnet_from_args(a, aves: Optional[int] = None, sens_aves: int = 1,
     return VarNet(aves=aves, sens_aves=sens_aves,
                   num_cascades=a.num_cascades, sens_chans=a.sens_chans,
                   sens_pools=a.sens_pools, chans=a.chans, pools=a.pools,
-                  dtype=torch.bfloat16 if a.amp else torch.float32)
+                  dtype=torch.bfloat16 if a.amp else torch.float32,
+                  mesh=mesh)
 
 
 def check_varnet_args(args: VarNetArgs, mesh=None, pipe_mesh=None) -> None:
     """Raise ``ValueError`` naming what the port cannot run."""
-    if mesh is not None or pipe_mesh is not None:
-        raise ValueError("mesh / pipe_mesh are not ported: data, coil and "
-                         "cascade-pipeline parallelism wait for the "
-                         "parallel slice (ROADMAP.md Queue 1 item 7); the "
-                         "port trains on one device")
+    if pipe_mesh is not None:
+        raise ValueError("pipe_mesh is not ported: the cascade pipeline "
+                         "(GPipe, point to point) waits for ROADMAP.md "
+                         "Queue 1 item 7b-ii; a (data, coil) mesh runs")
+    if mesh is not None and not isinstance(mesh, ReconGrid):
+        raise TypeError(f"mesh must be a parallel.mesh.ReconGrid, got "
+                        f"{type(mesh).__name__}")
     if args.ckpt_backend != "msgpack":
         raise ValueError(f"ckpt_backend {args.ckpt_backend!r} is not "
                          "ported: orbax is a JAX library; the port's own "
@@ -165,14 +181,19 @@ def _no_mark(stage: str) -> None:
 
 class VarNetTrainer:
     """``VarNetTrainer(args, train_ds, val_ds, device=...).fit()``; the
-    datasets are indexable sequences of ``VarNetSample``."""
+    datasets are indexable sequences of ``VarNetSample``. With ``mesh`` (a
+    ``ReconGrid``), one rank of a grid run on ``mesh.device``."""
 
     def __init__(self, args: VarNetArgs, train_ds=None, val_ds=None,
-                 mesh=None, pipe_mesh=None,
+                 mesh: Optional[ReconGrid] = None, pipe_mesh=None,
                  device: str | torch.device = "cuda"):
         check_varnet_args(args, mesh, pipe_mesh)
         self.args = args
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = mesh.world if mesh is not None else None
+        self.primary = mesh is None or mesh.primary
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         os.makedirs(args.out_dir, exist_ok=True)
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -193,7 +214,7 @@ class VarNetTrainer:
             return
         k, e = np.shape(kspace), np.shape(espirit)
         model = build_varnet_from_args(self.args, aves=int(k[-4]),
-                                       sens_aves=int(e[-4]))
+                                       sens_aves=int(e[-4]), mesh=self.mesh)
         init_fastmri_weights(model,
                              torch.Generator().manual_seed(self.args.seed))
         self.model = model.to(self.device)
@@ -219,13 +240,21 @@ class VarNetTrainer:
         """The training loss (a device scalar) and its gradients, in the
         optimizer's parameter order; ``mark`` is called after the forward
         and loss (``"forward_loss"``) and after the backward
-        (``"backward"``)."""
+        (``"backward"``). On a grid, of the global batch: averaged over
+        every rank (``grid_average``), equal on every rank."""
         self.model.train()
+        if self.mesh is not None:
+            rows = row_slice(int(target.shape[0]), self.mesh.data)
+            if rows is not None:
+                target, max_value = target[rows], max_value[rows]
         with f32_on_card(self.device):
             loss = varnet_loss(self.model, kspace, espirit, target,
                                max_value, self.args.crop)
             mark("forward_loss")
             grads = torch.autograd.grad(loss, self.optimizer.params)
+            if self.mesh is not None:
+                *grads, loss = grid_average(list(grads) + [loss.detach()],
+                                            self.mesh)
             mark("backward")
         return loss.detach(), grads
 
@@ -317,14 +346,14 @@ class VarNetTrainer:
         """Test-time reconstruction: each volume's slices stacked in slice
         order (a duplicate slice replaces the earlier); with ``out_dir``
         one ``<fname>`` ``.h5`` a volume holding ``reconstruction`` (the
-        prostate code's ``save_recon``)."""
+        prostate code's ``save_recon``), written by rank 0 of a grid."""
         by_vol: Dict[str, Dict[int, torch.Tensor]] = {}
         for sample in ds:
             by_vol.setdefault(str(sample.fname), {})[
                 int(sample.slice_num)] = self._sample_out(sample)
         stacks = {f: torch.stack([sl[i] for i in sorted(sl)]).cpu().numpy()
                   for f, sl in by_vol.items()}
-        if out_dir is not None:
+        if out_dir is not None and self.primary:
             from ..data.recon_data import save_recon
             os.makedirs(out_dir, exist_ok=True)
             for f, vol in stacks.items():
@@ -334,15 +363,18 @@ class VarNetTrainer:
     # ------------------------------------------------------------------
 
     def _save_best(self) -> None:
-        ckpt_lib.save_best(self.best_path, self.model.state_dict(),
-                           asdict(self.args))
+        if self.primary:
+            ckpt_lib.save_best(self.best_path, self.model.state_dict(),
+                               asdict(self.args))
 
     def _save_resume(self, epoch: int) -> None:
         tensors = {"model": self.model.state_dict(),
                    "optimizer": self.optimizer.state_dict()}
         host = {"epoch": int(epoch), "best_val": float(self.best_val)}
-        ckpt_lib.save_resume(self.args.out_dir, epoch, tensors, host,
-                             keep=self.args.resume_keep)
+        if self.primary:
+            ckpt_lib.save_resume(self.args.out_dir, epoch, tensors, host,
+                                 keep=self.args.resume_keep)
+        barrier(self.group)
 
     def try_resume(self) -> bool:
         """Restore the newest snapshot in ``out_dir``; the model must be
@@ -388,10 +420,11 @@ class VarNetTrainer:
             tr = self.train_one_epoch()
             val = self.validate()
             vl = val["validation_loss"]
-            print(f"[varnet] epoch {ep:03d} train {tr:.4f} val {vl:.4f} "
-                  f"nmse {val['nmse']:.4f} ssim {val['ssim']:.4f} "
-                  f"psnr {val['psnr']:.2f} ({time.time() - t0:.1f}s)",
-                  flush=True)
+            if self.primary:
+                print(f"[varnet] epoch {ep:03d} train {tr:.4f} val "
+                      f"{vl:.4f} nmse {val['nmse']:.4f} ssim "
+                      f"{val['ssim']:.4f} psnr {val['psnr']:.2f} "
+                      f"({time.time() - t0:.1f}s)", flush=True)
             history.append({"epoch": ep, "train_loss": tr, **val,
                             "seconds": time.time() - t0})
             if vl < self.best_val:
@@ -399,10 +432,12 @@ class VarNetTrainer:
                 self._save_best()
             if save_resume_every and ep % save_resume_every == 0:
                 self._save_resume(ep)
+            self._preempt = any_rank(self._preempt, self.group)
             if self._preempt:
                 if not (save_resume_every and ep % save_resume_every == 0):
                     self._save_resume(ep)
                 print(f"[preempt] resume snapshot saved (epoch {ep} done);"
                       " stopping")
                 break
+        barrier(self.group)
         return {"best_ckpt": self.best_path, "history": history}

@@ -212,8 +212,8 @@ def test_preprocess_volume_pairs_matches_jax():
 
 
 def test_preprocess_rejects_what_is_not_ported():
-    """N4, NL-means and multi-coil k-space are ported now; what is refused
-    is a bad band, a bad k-space shape and volumes spread over cards."""
+    """N4, NL-means, multi-coil k-space and volumes spread over devices are
+    ported now; what is refused is a bad band and a bad k-space shape."""
     pre = MRIKneePreprocessor(use_n4=True, use_denoise=True, device="cpu")
     assert pre.use_n4 and pre.use_denoise
     with pytest.raises(ValueError):
@@ -221,9 +221,13 @@ def test_preprocess_rejects_what_is_not_ported():
     with pytest.raises(ValueError):
         MRIKneePreprocessor(device="cpu").preprocess_volume_pairs(
             np.zeros((2, 3, 8, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError):
-        MRIKneePreprocessor(device="cpu").preprocess_volumes_pairs(
-            [np.zeros((2, 8, 8, 2), np.float32)], devices=["cpu", "cpu"])
+    pairs = [synthetic_kspace_pairs(seed=s, s=2, h=16, w=12) for s in (3, 4)]
+    pre = MRIKneePreprocessor(device="cpu", out_size=(8, 8))
+    for got, pair in zip(pre.preprocess_volumes_pairs(
+            pairs, devices=["cpu", "cpu"]), pairs):
+        want = pre.preprocess_volume_pairs(pair)
+        for key in ("tensor", "preview", "mask"):
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
 
 
 # The label kernels' edge cases at CPU sizes: widths across the 32-pixel

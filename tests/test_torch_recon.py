@@ -255,17 +255,27 @@ def test_grappa_fully_sampled_is_a_no_op(rng):
 
 
 def test_mesh_is_refused(rng):
+    """A mesh of devices, once refused, now spreads the slices: the fill
+    and both pipelines over two CPU devices equal one device
+    (``tests/test_torch_recon_mesh.py`` holds them to JAX's mesh runs)."""
     ksp, under = _undersampled(rng, "r2")
     g = Grappa(under, coil_axis=-1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        g.apply_weights_pair_multi(torch.from_numpy(under[None, None]),
-                                   [{}], mesh=object())
-    kd = np.zeros((3, 1, 2, 8, 8), np.complex64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t2.t2_reconstruction(kd, kd[0], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dwi.dwi_reconstruction(kd, kd[0], kd[0], EPI, mesh=object(),
-                               device="cpu")
+    w = g.compute_weights(ksp[16:32])
+    k = torch.from_numpy(np.stack([under, 0.5 * under])[:, None])
+    torch.testing.assert_close(
+        g.apply_weights_pair_multi(k, [w, w], mesh=["cpu", "cpu"]),
+        g.apply_weights_pair_multi(k, [w, w]), rtol=0, atol=0)
+    kspace, calib = _t2_case(rng, slices=3)
+    np.testing.assert_array_equal(
+        t2.t2_reconstruction(kspace, calib, mesh=["cpu", "cpu"],
+                             device="cpu")["reconstruction_rss"],
+        t2.t2_reconstruction(kspace, calib, device="cpu")[
+            "reconstruction_rss"])
+    ksp_d, cal_d, sens_d = _dwi_case(rng, slices=2)
+    got = dwi.dwi_reconstruction(ksp_d, cal_d, sens_d, EPI,
+                                 mesh=["cpu", "cpu"], device="cpu")
+    want = dwi.dwi_reconstruction(ksp_d, cal_d, sens_d, EPI, device="cpu")
+    assert _dwi_maps_agree(got, want) == dict.fromkeys(want, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -512,14 +522,19 @@ def test_cli_recon_matches_jax_reconstruct_case(tmp_path, rng):
 
 
 def test_cli_recon_refuses_data_parallel_and_missing_dirs(tmp_path, capsys):
+    """``--data-parallel 2`` is taken now (two CPU devices, then the
+    missing directory stops the run); on cards it asks for two."""
     base = ["--data-path", str(tmp_path), "--output-path",
-            str(tmp_path / "o"), "--sequence", "t2", "--device", "cpu"]
+            str(tmp_path / "o"), "--sequence", "t2"]
     with pytest.raises(SystemExit):
-        cli.main(base + ["--data-parallel", "2"])
-    assert "Queue 1 item 7" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        cli.main(base)
+        cli.main(base + ["--device", "cpu", "--data-parallel", "2"])
     assert "no such dir" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--device", "cpu"])
+    assert "no such dir" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="requested 2 devices, have 0"):
+            cli.main(base + ["--data-parallel", "2"])
 
 
 def test_recon_and_ingest_entry_points_default_to_the_card(tmp_path, rng):

@@ -47,6 +47,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.models.convert import (
     state_dict_from_flax_fastmri_unet, state_dict_from_flax_varnet)
 from mri_acl_imagesegmentation_adsp_tpu_torch.models.fastmri_unet import (
     FastMRIUnet)
+from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
 from mri_acl_imagesegmentation_adsp_tpu_torch.recon import varnet as tvn
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import varnet_synthetic
 from mri_acl_imagesegmentation_adsp_tpu_torch.train import ssim as tssim
@@ -433,8 +434,22 @@ def test_varnet_pair_layouts_and_refusals():
                                        "num_cascades": 1}).aves == 12
     with pytest.raises(ValueError, match="aves"):
         tvt.build_varnet_from_args({"bvalue": "custom"})
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(TypeError, match="ReconGrid"):
         tvt.build_varnet_from_args(tvt.VarNetArgs(), mesh=object())
+    # a (1, 1) grid (one rank: no sub-groups) builds the one-device model
+    one = mesh.ReconGrid(mesh.DataGroup(1, 0, torch.device("cpu"), None,
+                                        "gloo"), None, None)
+    kw = {"bvalue": "b50", "num_cascades": 1, "chans": 4, "pools": 2,
+          "sens_chans": 4, "sens_pools": 2, "amp": False}
+    on_grid = tvt.build_varnet_from_args(kw, mesh=one)
+    plain = tvt.build_varnet_from_args(kw)
+    plain.load_state_dict(on_grid.state_dict())
+    rng = np.random.default_rng(4)
+    k, e = (torch.from_numpy(_pair(rng, (1, 2, a, 16, 16, 2)))
+            for a in (3, 1))
+    with torch.no_grad():
+        torch.testing.assert_close(on_grid(k, e), plain(k, e), rtol=0,
+                                   atol=0)
     m = tvt.build_varnet_from_args({"bvalue": "b50", "num_cascades": 1,
                                     "chans": 4, "pools": 2, "sens_chans": 4,
                                     "sens_pools": 2, "amp": True})

@@ -300,12 +300,16 @@ def test_resume_and_preemption_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "item 7"), ({"pipe_mesh": object()}, "item 7"),
+    ({"mesh": object()}, "ReconGrid"), ({"pipe_mesh": object()}, "item 7"),
     ({"ckpt_backend": "orbax"}, "orbax"), ({"ckpt_async": True}, "orbax")])
 def test_varnet_trainer_refusals(kw, match, tmp_path):
+    """A ``mesh`` must be a ``ReconGrid`` (the grid runs:
+    ``tests/test_torch_varnet_shard.py``); the cascade pipeline and the
+    orbax options are refused."""
     args = {k: v for k, v in kw.items() if k.startswith("ckpt")}
     meshes = {k: v for k, v in kw.items() if k.endswith("mesh")}
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(TypeError if "mesh" in kw else ValueError,
+                       match=match):
         tvt.VarNetTrainer(tvt.VarNetArgs(out_dir=str(tmp_path), **args),
                           device="cpu", **meshes)
 
@@ -446,8 +450,12 @@ def test_data_module_and_val_shards(dwi_root):
     sizes = [2, 3]                   # the larger volume's slices first
     np.testing.assert_array_equal(dm.val_shards(1)[0],
                                   volume_affine_shards(sizes, 1)[0])
-    with pytest.raises(ValueError, match="item 7"):
-        dm.val_shards(2)
+    jdm = jrd.FastMriDataModule(dwi_root, "b50")
+    for n in (2, 3):
+        got, want = dm.val_shards(n), jdm.val_shards(n)
+        assert len(got) == len(want) == n
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_h5_entries_name_h5py_without_it(tmp_path, monkeypatch):
@@ -493,11 +501,21 @@ def test_cli_train_varnet_train_then_test(dwi_root, tmp_path):
                                   ["--ckpt-backend", "orbax"],
                                   ["--ckpt-async"]])
 def test_cli_train_varnet_refusals(flag, tmp_path, capsys):
+    """``--data-parallel`` / ``--coil-parallel`` are taken now: they ask
+    for their cards (none here; the grid runs on CPU ranks in
+    ``tests/test_torch_varnet_shard.py``); ``--pipeline-parallel`` and the
+    orbax options are refused."""
+    if flag[0] in ("--data-parallel", "--coil-parallel"):
+        if not torch.cuda.is_available():
+            with pytest.raises(ValueError,
+                               match="requested 2 devices, have 0"):
+                train_varnet.main(["--data-path", str(tmp_path), *flag])
+        return
     with pytest.raises(SystemExit) as e:
         train_varnet.main(["--data-path", str(tmp_path), *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("item 7" if "parallel" in flag[0] else "orbax") in err
+    assert ("7b-ii" if "parallel" in flag[0] else "orbax") in err
 
 
 def test_cli_evaluate_matches_jax(tmp_path):
