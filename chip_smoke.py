@@ -178,8 +178,23 @@ Phases, each printing one JSON line with its seconds:
      ``graft_entry.dryrun_multichip(2)`` passing (its ``dryrun_rank`` and
      the probes run in the same two ranks, one spawn for all, and
      ``dryrun_check`` holds them to one device: the U-Net, the classifier,
-     the one-cascade VarNet on a (1, 2) grid and the T2 recon over
-     ``[cuda:0, cuda:0]``).
+     the one-cascade VarNet on a (1, 2) grid, the T2 recon over
+     ``[cuda:0, cuda:0]``, the two-cascade VarNet pipelined over the two
+     ranks and the 3-D trainer's epoch at ``spatial_parallel`` 2);
+     ``tools/probe_model_parallel.py``'s parts in the same ranks: the
+     reference 3-D U-Net (ROI 160x160x64, batch 2) depth-sharded over the
+     two ranks (32 planes each): the f32 forward and one f32 step against
+     one rank (a one-ulp floor), the step in float64 at a narrow width
+     (1e-10 of each tensor's max), ms a bf16 step on the grid and on one
+     rank, the halo sends and bytes, the depth all-reduces a step and the
+     peak GiB a rank; ``cli.infer --ckpt3d --spatial-parallel 2``'s rank on
+     phase 11's checkpoint and whole val volume, its masks against the
+     one-rank CLI's away from the threshold's margin; the protocol VarNet
+     over a 2-stage pipe (batch 2, two microbatches): one f32 step against
+     one rank, ms a bf16 step on the pipe and one rank, the sends and bytes
+     a step, the bubble share. The kernel line's ``launches_by_path`` has a
+     row for the spread preprocess and one for each of the two
+     point-to-point paths (no mask kernel runs on them).
 Then a ``kernels`` line (each kernel's times, bound, plain version, and
 the CUDA kernels a wrapper call launches, from a profiler trace), the
 ``nvidia-smi`` line and, last, the result line
@@ -264,7 +279,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch import graft_entry
 from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
     classify_synthetic, corpus_run, probe_coil_parallel, probe_data_parallel,
-    probe_label_prop, probe_recon, varnet_synthetic)
+    probe_label_prop, probe_model_parallel, probe_recon, varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -3720,21 +3735,51 @@ def dp_spread_preprocess(dev: torch.device) -> dict:
     return out
 
 
-def dp_rank(group: mesh.DataGroup, probe_args: tuple,
-            coil_args: tuple) -> dict:
+def dp_rank(group: mesh.DataGroup, probe_args: tuple, coil_args: tuple,
+            mp_args: tuple) -> dict:
     """Phase 15's work on each of its ranks: the dry run's, the data-
-    parallel probe's and the coil-parallel probe's (one spawn for all: a
-    rank's start on the card costs some 20 s of CUDA set-up)."""
+    parallel probe's, the coil-parallel probe's and the point-to-point
+    probe's (one spawn for all: a rank's start on the card costs some 20 s
+    of CUDA set-up), with the mask kernels' launches on each
+    point-to-point path, counted from 0 just before it."""
     out = {"dryrun": graft_entry.dryrun_rank(group, True),
            "probe": probe_data_parallel.rank_main(group, *probe_args)}
     torch.cuda.empty_cache()
     out["coil"] = probe_coil_parallel.rank_main(group, *coil_args)
+    torch.cuda.empty_cache()
+    train_list, ckpt3d, infer_list, args, pair, work = mp_args
+    mp = out["model_parallel"] = {}
+    launches = out["launches"] = {}
+    reset_mask_launches()
+    mp["unet3d"] = probe_model_parallel.unet3d_part(group, train_list, work)
+    torch.cuda.empty_cache()
+    with f32_on_card(group.device):
+        mp["infer3d"] = probe_model_parallel.infer3d_part(
+            group, ckpt3d, infer_list, work)
+    launches["unet3d_spatial"] = mask_launches()
+    reset_mask_launches()
+    mp["varnet_pp"] = probe_model_parallel.varnet_pp_part(group, args, pair,
+                                                         work)
+    launches["varnet_pipeline"] = mask_launches()
     return out
 
 
-def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
-    """Phase 15: data parallelism on the card's one device. Returns the
-    mask kernels' launches on this path (packing its volumes)."""
+def _sum_launches(ranks: list, path: str) -> dict:
+    """A path's mask kernel launches summed over the ranks."""
+    out: dict = {}
+    for r in ranks:
+        for k, n in r["launches"][path].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str,
+                        ckpt3d: str, list3d: str) -> dict:
+    """Phase 15: data and model parallelism on the card's one device, the
+    3-D checks on phase 11's checkpoint ``ckpt3d`` and volume list
+    ``list3d``. Returns the mask kernels' launches on each of its paths:
+    packing its volumes, the spread preprocess, the depth-sharded 3-D
+    U-Net and VarNet's pipeline."""
     t0 = time.perf_counter()
     reset_mask_launches()
     train_list, val_list = dp_pack(dev, tmp)
@@ -3750,12 +3795,28 @@ def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
         # graft_entry.dryrun_multichip(2)'s ranks, then the probes'
         t1, wall = time.perf_counter(), time.time()
         devices, where = graft_entry.dryrun_devices(2)
-        coil_args, coil_case = probe_coil_parallel.protocol_case()
+        coil_args, pair = probe_model_parallel.protocol_pair()
+        coil_case = (pair[0].kspace, pair[0].espirit, pair[0].target,
+                     np.float32(pair[0].max_value))
         ranks = mesh.spawn(dp_rank, 2, devices, timeout_s=900.0, args=(
             probe_data_parallel.rank_args(train_list, val_list, tmp),
-            (coil_args, coil_case, tmp)))
+            (coil_args, coil_case, tmp),
+            (train_list, ckpt3d, list3d, coil_args, pair, tmp)))
         out["probe"] = ranks[0]["probe"]
         out["coil_probe"] = ranks[0]["coil"]
+        out["model_parallel"] = ranks[0]["model_parallel"]
+        one = ranks[1]["model_parallel"]
+        out["model_parallel"]["rank1"] = {
+            "peak_gib": one["unet3d"]["timing"]["peak_gib_grid_rank"],
+            "halo_sends": one["unet3d"]["timing"]["halo_sends"],
+            "halo_bytes": one["unet3d"]["timing"]["halo_bytes"],
+            "pipe_sends": one["varnet_pp"]["timing"]["sends"],
+            "pipe_bytes": one["varnet_pp"]["timing"]["bytes"]}
+        p2p = {path: _sum_launches(ranks, path)
+               for path in ("unet3d_spatial", "varnet_pipeline")}
+        if any(n for counts in p2p.values() for n in counts.values()):
+            raise AssertionError(f"a mask kernel ran on a point-to-point "
+                                 f"path: {p2p}")
         out["probe"]["part_seconds"]["spawn_to_probe_start"] = (
             out["probe"].pop("started") - wall)
         out["dryrun_multichip"] = graft_entry.dryrun_check(
@@ -3784,11 +3845,56 @@ def phase_data_parallel(dev: torch.device, defaults: dict, tmp: str) -> dict:
           f"{coil['f64']['f64_worst_rel_to_max']:.2e} of a tensor's max "
           f"({coil['f64']['f64_worst_tensor']}); parts "
           f"{coil['part_seconds']}", flush=True)
+    mp = out["model_parallel"]
+    u, t3 = mp["unet3d"], mp["unet3d"]["timing"]
+    print(f"depth-sharded 3-D U-Net {u['channels']} at ROI {u['roi']} "
+          f"batch {u['batch']}, 2 ranks over gloo (bands of "
+          f"{u['bands'][1]} planes): {t3['ms_step_grid']:.1f} ms a bf16 "
+          f"step (1 rank {t3['ms_step_one_rank']:.1f} ms), halo sends a "
+          f"step {t3['halo_sends']} / {mp['rank1']['halo_sends']} "
+          f"({t3['halo_bytes']} / {mp['rank1']['halo_bytes']} bytes), "
+          f"{t3['all_reduces']} depth all-reduces, peak "
+          f"{t3['peak_gib_grid_rank']:.2f} / "
+          f"{mp['rank1']['peak_gib']:.2f} GiB a rank (1 rank "
+          f"{t3['peak_gib_one_rank']:.2f}); forward "
+          f"{u['forward']['rel_to_max']:.2e} of max (floor "
+          f"{u['forward']['floor_one_ulp']:.2e}), f32 step loss "
+          f"{u['f32']['loss_rel_diff']:.2e}, gradient drift worst "
+          f"{u['f32']['grad_worst_drift']:.2e} median "
+          f"{u['f32']['grad_median_drift']:.2e} (one-ulp floor "
+          f"{u['f32']['floor_worst_drift']:.2e} / "
+          f"{u['f32']['floor_median_drift']:.2e}), float64 "
+          f"{u['f64']['f64_worst_rel_to_max']:.2e}; parts "
+          f"{u['part_seconds']}", flush=True)
+    for v in mp["infer3d"]["volumes"]:
+        print(f"cli.infer --ckpt3d --spatial-parallel 2 on {v['volume']} "
+              f"{v['shape']}: {v['differ']} of {v['voxels']} mask voxels "
+              f"differ from one rank, {v['differ_outside_margin']} outside "
+              f"{v['margin']} of the threshold ({v['within_margin']} "
+              f"within); dice {v['dice_sharded']} vs "
+              f"{v['dice_one_rank']}; "
+              f"{mp['infer3d']['seconds_sharded']:.2f} s vs "
+              f"{mp['infer3d']['seconds_one_rank']:.2f} s", flush=True)
+    pp, tp = mp["varnet_pp"], mp["varnet_pp"]["timing"]
+    print(f"pipelined protocol VarNet, {pp['stages']} stages x "
+          f"{pp['microbatches']} microbatches over gloo: "
+          f"{tp['ms_step_pipe']:.1f} ms a bf16 step (1 rank "
+          f"{tp['ms_step_one_rank']:.1f} ms), sends a step {tp['sends']} / "
+          f"{mp['rank1']['pipe_sends']} ({tp['bytes']} / "
+          f"{mp['rank1']['pipe_bytes']} bytes), bubble "
+          f"{pp['bubble_share']:.3f}; f32 "
+          f"step loss {pp['f32']['loss_rel_diff']:.2e}, gradient drift "
+          f"worst {pp['f32']['grad_worst_drift']:.2e} median "
+          f"{pp['f32']['grad_median_drift']:.2e} (one-ulp floor "
+          f"{pp['f32']['floor_worst_drift']:.2e} / "
+          f"{pp['f32']['floor_median_drift']:.2e})", flush=True)
     seconds = time.perf_counter() - t0
     print(f"phase 15: {seconds:.1f} s", flush=True)
     emit({"phase": "data_parallel", "seconds": seconds,
           "launches": launches, **out})
-    return {"data_parallel": launches}
+    return {"data_parallel": launches,
+            "spread_preprocess": out["spread_preprocess"][
+                "launches_spread"], **p2p}
 
 
 def main() -> int:
@@ -3826,7 +3932,11 @@ def main() -> int:
         by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
         by_path.update(phase_varnet(dev, defaults, tmp))
         by_path.update(phase_classify(dev, defaults, tmp))
-        by_path.update(phase_data_parallel(dev, defaults, tmp))
+        # phase 11's checkpoint and its whole val volume
+        by_path.update(phase_data_parallel(
+            dev, defaults, tmp,
+            os.path.join(tmp, "run3d_host", "best3d.ckpt"),
+            os.path.join(tmp, "val3d_one.txt")))
     for r in (row, cc_row):
         r["launches"] = by_path["serve"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()}

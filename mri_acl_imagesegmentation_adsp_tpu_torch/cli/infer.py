@@ -16,6 +16,13 @@ explicit ``--quant`` overrides the artifact's mode. ``--data-parallel N``
 runs each batch split over ``N`` model replicas in this process, on
 ``cuda:0`` .. ``cuda:N-1`` (fewer cards raise), or ``N`` CPU replicas with
 ``--device cpu`` (``infer/segment.py:ReplicatedApply``); 2-D only.
+``--ckpt3d --spatial-parallel N`` spawns ``N`` ranks
+(``parallel/mesh.py:spawn``, ``cuda:0`` .. ``cuda:N-1``, or CPU ranks with
+``--device cpu``; fewer cards raise "requested N devices, have M"), each
+running its depth band of every padded whole volume through the 3-D U-Net
+(``parallel/spatial.py:unet3d_depth_sharded_apply``, halo exchanges
+between neighbouring ranks); rank 0 receives the logits and writes the
+files, as JAX's GSPMD run gathers them.
 
 Usage:
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.infer \\
@@ -43,7 +50,8 @@ from ..infer.segment import (
     ReplicatedApply, evaluate_volume, segment_volume_2d, threshold_probs,
     tree_to)
 from ..models.factory import build_unet, build_unet3d
-from ..parallel.mesh import mesh_devices
+from ..parallel.mesh import DataGroup, mesh_devices, spawn
+from ..parallel.spatial import unet3d_depth_sharded_apply
 from ..train import checkpoint as ckpt_lib
 from ..utils.device import f32_on_card, resolve_device
 from ..utils.imagenet import make_input_norm
@@ -111,7 +119,7 @@ def qtree_replicas(eng: QuantizedUNet2D, qtree, norm: Callable,
     return replicated(make, devices)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "Whole-volume segmentation inference (PyTorch)", allow_abbrev=False)
     p.add_argument("--ckpt", help="best checkpoint (train/checkpoint.py "
@@ -144,19 +152,32 @@ def main(argv=None) -> int:
                    help="3-D checkpoint (trainer3d best3d.ckpt): whole-"
                         "volume 3-D inference instead of 2-D slices")
     p.add_argument("--spatial-parallel", type=int, default=1,
-                   help="with --ckpt3d: devices to depth-shard the volume "
-                        "over; only 1 is ported")
+                   help="with --ckpt3d: ranks to depth-shard each whole "
+                        "volume over, one card each (CPU ranks with "
+                        "--device cpu)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     if args.data_parallel < 1:
         p.error(f"--data-parallel {args.data_parallel} is below 1")
-    if args.spatial_parallel != 1:
-        p.error(f"--spatial-parallel {args.spatial_parallel}: depth-sharded "
-                "3-D inference is not ported (ROADMAP.md Queue 1 item 7b)")
+    if args.spatial_parallel < 1:
+        p.error(f"--spatial-parallel {args.spatial_parallel} is below 1")
+    if args.spatial_parallel > 1 and not args.ckpt3d:
+        p.error(f"--spatial-parallel {args.spatial_parallel} depth-shards a "
+                "--ckpt3d volume; 2-D batches split with --data-parallel")
     if args.ckpt3d and args.data_parallel != 1:
         p.error(f"--data-parallel {args.data_parallel} splits 2-D batches; "
                 "--ckpt3d infers a whole volume at once")
+    if args.ckpt3d and args.spatial_parallel > 1:
+        n = args.spatial_parallel
+        spawn(run_3d_rank, n, mesh_devices(n, args.device), args=(args,),
+              timeout_s=1e6)
+        return 0
     if args.ckpt3d:
         dev = resolve_device(args.device)
         with f32_on_card(dev):
@@ -218,27 +239,33 @@ def load_model3d_from_ckpt(ckpt_path: str,
     return model.to(resolve_device(device)).eval(), margs
 
 
-def _run_3d(args, dev: torch.device) -> int:
+def run_3d_rank(group: DataGroup, args) -> int:
+    """One spawned rank of ``--ckpt3d --spatial-parallel``."""
+    with f32_on_card(group.device):
+        return _run_3d(args, group.device, group)
+
+
+def _run_3d(args, dev: torch.device, group: DataGroup | None = None) -> int:
+    """Whole-volume 3-D inference, on one device or as one rank of
+    ``group`` (each volume depth-sharded over its ranks; rank 0 writes)."""
     model, margs = load_model3d_from_ckpt(args.ckpt3d, dev)
+    runner = unet3d_depth_sharded_apply(model, group)
     classes = int(margs.get("classes", 1))
+    primary = group is None or group.primary
     out_root = Path(args.out_dir)
-    out_root.mkdir(parents=True, exist_ok=True)
+    if primary:
+        out_root.mkdir(parents=True, exist_ok=True)
     summary = []
     for path in read_list(args.list_txt):
         with np.load(path) as z:
             vol = z["img"].astype(np.float32)      # (S,1,H,W)
             gt = z["msk"].astype(np.uint8)
-        # the per-volume z-score of the 3-D sampler (train/trainer3d.py)
-        mu, sd = float(vol.mean()), float(vol.std() + 1e-6)
-        x = ((vol - mu) / sd)[None, :, 0][:, None]   # (1,1,S,H,W)
-        # zero-pad (S, H, W) to the model's 2^4 stride; crop back below
-        s0, h0, w0 = x.shape[2:]
-        pads = [(0, -d % 16) for d in (s0, h0, w0)]
-        if any(p[1] for p in pads):
-            x = np.pad(x, [(0, 0), (0, 0), *pads])
+        s0, h0, w0 = vol.shape[0], vol.shape[2], vol.shape[3]
         with torch.inference_mode():
-            logits = model(torch.from_numpy(x).to(dev))[
+            logits = runner(torch.from_numpy(_volume_input(vol)).to(dev))[
                 0, :, :s0, :h0, :w0]
+            if not primary:
+                continue
             if classes == 1:
                 probs = torch.sigmoid(logits[0])            # (S,H,W)
                 pred = (probs > args.threshold).to(torch.uint8)
@@ -258,14 +285,31 @@ def _run_3d(args, dev: torch.device) -> int:
             entry.update(evaluate_volume(pred, torch.from_numpy(gt).to(dev)))
         summary.append(entry)
         msg = (f"[infer3d] {Path(path).parent.name}: whole volume "
-               f"{vol.shape[0]} slices")
+               f"{vol.shape[0]} slices"
+               + (f" over {group.world} shards" if group is not None
+                  else ""))
         if "dice" in entry:
             msg += f" dice {entry['dice']:.4f}"
         print(msg)
 
-    with (out_root / "summary.json").open("w", encoding="utf-8") as f:
-        json.dump(summary, f, indent=2)
+    if primary:
+        with (out_root / "summary.json").open("w", encoding="utf-8") as f:
+            json.dump(summary, f, indent=2)
     return 0
+
+
+def _volume_input(vol: np.ndarray) -> np.ndarray:
+    """A packed ``(S, 1, H, W)`` volume as the 3-D model's ``(1, 1, S, H,
+    W)`` input: the per-volume z-score of the 3-D sampler
+    (``train/trainer3d.py``), zero-padded (S, H, W) to the model's 2^4
+    stride (the caller crops the logits back)."""
+    vol = vol.astype(np.float32)
+    mu, sd = float(vol.mean()), float(vol.std() + 1e-6)
+    x = ((vol - mu) / sd)[None, :, 0][:, None]   # (1,1,S,H,W)
+    pads = [(0, -d % 16) for d in x.shape[2:]]
+    if any(p[1] for p in pads):
+        x = np.pad(x, [(0, 0), (0, 0), *pads])
+    return x
 
 
 def _run(args, apply_fn, k: int, classes: int, dev: torch.device) -> int:

@@ -11,11 +11,13 @@ slices needs h5py. ``--data-parallel D --coil-parallel C`` above ``1 x 1``
 spawns ``D * C`` ranks (``parallel/mesh.py:spawn``, one card each, or CPU
 ranks with ``--device cpu``) on a ``(D, C)`` grid (``make_recon_grid``),
 each reading the slices and training its block of each batch; rank 0
-writes the run. Asking for more ranks than cards raises as JAX's
-``make_recon_mesh`` does. Refused: ``--pipeline-parallel`` above 1 (the
-cascade pipeline, ROADMAP.md Queue 1 item 7b-ii), and, as the trainer
-refuses them, ``--ckpt-backend orbax`` and ``--ckpt-async`` (the port's own
-snapshots take their place).
+writes the run. ``--pipeline-parallel N`` spawns ``N`` ranks of a pipe
+(``VarNetTrainer(pipe_mesh=)``: the cascades as GPipe stages,
+``parallel/pipeline.py``); ``--num-cascades`` must tile ``N``, and it
+excludes ``--data-parallel`` / ``--coil-parallel``, as in JAX. Asking for
+more ranks than cards raises as JAX's ``make_recon_mesh`` does. Refused, as
+the trainer refuses them: ``--ckpt-backend orbax`` and ``--ckpt-async``
+(the port's own snapshots take their place).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.train_varnet \\
       --data-path /data/prostate_dwi --bvalue b50 --out-dir runs/varnet_b50
@@ -83,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks on the coil axis of the grid (k-space and "
                         "sensitivity coil shares; one coil sum a cascade)")
     p.add_argument("--pipeline-parallel", type=int, default=1,
-                   help="not ported (ROADMAP.md Queue 1 item 7b-ii); "
-                        "only 1")
+                   help="GPipe the cascade chain over N ranks (num-"
+                        "cascades must tile N; excludes --data/--coil-"
+                        "parallel)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     return p
@@ -105,19 +108,18 @@ def _varnet_args(args):
 
 def main(argv=None) -> int:
     from ..parallel.mesh import mesh_devices, spawn
-    from ..train.varnet_trainer import check_varnet_args
+    from ..train.varnet_trainer import check_pipe, check_varnet_args
 
     p = build_parser()
     args = p.parse_args(argv)
     if args.pipeline_parallel > 1:
-        p.error(f"--pipeline-parallel {args.pipeline_parallel}: the cascade "
-                "pipeline (GPipe, point to point) is not ported (ROADMAP.md "
-                "Queue 1 item 7b-ii)")
+        check_pipe(_varnet_args(args), args.pipeline_parallel,
+                   args.data_parallel * args.coil_parallel > 1)
     try:
         check_varnet_args(_varnet_args(args))
     except ValueError as exc:
         p.error(str(exc))
-    world = args.data_parallel * args.coil_parallel
+    world = args.data_parallel * args.coil_parallel * args.pipeline_parallel
     if world > 1:
         spawn(run_rank, world, mesh_devices(world, args.device),
               args=(args,), timeout_s=1e6)
@@ -126,20 +128,24 @@ def main(argv=None) -> int:
 
 
 def run_rank(group, args) -> int:
-    """One spawned rank of ``--data-parallel`` x ``--coil-parallel``."""
+    """One spawned rank of ``--data-parallel`` x ``--coil-parallel``, or of
+    ``--pipeline-parallel`` (the whole group one pipe)."""
     from ..parallel.mesh import make_recon_grid
+    if args.pipeline_parallel > 1:
+        return run(args, pipe=group)
     return run(args, make_recon_grid(group, args.data_parallel,
                                      args.coil_parallel))
 
 
-def run(args, grid=None) -> int:
+def run(args, grid=None, pipe=None) -> int:
     """Train or test on the parsed ``args``, on one device or as one rank
-    of ``grid``."""
+    of ``grid`` or of ``pipe``."""
     from ..data.recon_data import SliceDataset
     from ..data.transforms import VarNetDataTransform
     from ..train.varnet_trainer import VarNetTrainer
 
-    device = grid.device if grid is not None else args.device
+    device = (grid.device if grid is not None else pipe.device
+              if pipe is not None else args.device)
     mask_func = None
     if args.mask_type != "none":
         from ..data.subsample import EquispacedMaskFunc, RandomMaskFunc
@@ -153,7 +159,8 @@ def run(args, grid=None) -> int:
                           device=device)
 
     trainer = VarNetTrainer(_varnet_args(args), train_ds=train_ds,
-                            val_ds=val_ds, mesh=grid, device=device)
+                            val_ds=val_ds, mesh=grid, pipe_mesh=pipe,
+                            device=device)
     if args.mode == "train":
         trainer.fit(resume=args.resume,
                     save_resume_every=args.save_resume_every,

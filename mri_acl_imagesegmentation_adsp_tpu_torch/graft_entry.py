@@ -12,14 +12,17 @@ Counterpart: ``__graft_entry__.py`` at the repository root:
   epoch of the tiny ConvNeXt classifier with its batches split over the
   ranks, one loss-and-gradient step of a one-cascade VarNet on a ``(data,
   coil)`` grid of the ranks (``_dryrun_varnet_tp``: 4 coil ranks where
-  ``n`` is a multiple of 4, else 2) and the T2 recon with its slices
-  spread over ``n`` devices (``_dryrun_t2_sharded_recon``); each held to
-  the same work on one device (the JAX tolerances: train loss 1e-4,
-  validation loss 5e-4, classifier losses 1e-4, VarNet loss 1e-5 and
-  gradient drift 1e-3, T2 rtol / atol 1e-5), every rank to one device.
-  The point-to-point parts of the JAX dry run (VarNet's cascade pipeline,
-  the depth-sharded 3-D U-Net) are not ported yet (ROADMAP.md Queue 1 item
-  7b-ii): the dry run names them in its printout and in its result.
+  ``n`` is a multiple of 4, else 2), the T2 recon with its slices spread
+  over ``n`` devices (``_dryrun_t2_sharded_recon``), one loss-and-gradient
+  step of a two-cascade VarNet pipelined over pipes of two ranks
+  (``_dryrun_varnet_pp``, :241-281) and one epoch of the 3-D U-Net
+  trainer at ``spatial_parallel`` 2 (``_dryrun_unet3d_spatial``, :284-328;
+  the ranks beyond two on the data axis); each held to the same work on
+  one device (the JAX tolerances: train loss 1e-4, validation loss 5e-4,
+  classifier losses 1e-4, VarNet loss 1e-5 and gradient drift 1e-3, T2
+  rtol / atol 1e-5, the pipelined VarNet's loss 1e-6 and gradient drift
+  1e-3, the 3-D train loss 1e-4), every rank to one device.
+  ``NOT_PORTED`` is empty: the dry run runs every part of JAX's.
 
 The ranks take one card each over NCCL where there are ``n`` cards; where
 there are fewer, they share the cards over gloo and the printout says so.
@@ -28,6 +31,7 @@ They run on the CPU only when ``device="cpu"`` asks for it.
 
 from __future__ import annotations
 
+import os
 import tempfile
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -39,19 +43,22 @@ from .data.hbm_loader import SliceStore, epoch_permutation
 from .models.factory import build_unet
 from .models.fastmri_unet import init_fastmri_weights
 from .models.unet2d import init_weights
-from .parallel.mesh import (DataGroup, ReconGrid, choose_backend,
-                            grid_average, make_recon_grid, spawn)
+from .parallel.mesh import (DataGroup, ReconGrid, average_flat,
+                            choose_backend, grid_average, make_recon_grid,
+                            spawn)
+from .parallel.pipeline import pipeline_grads, varnet_apply_pipelined
 from .recon.t2 import t2_reconstruction
 from .recon.varnet import VarNet
 from .train.engine import Engine
 from .train.losses import LossManager
 from .train.optim import make_optimizer
+from .train.trainer3d import UNet3DArgs, UNet3DTrainer
 from .utils.device import f32_on_card, resolve_device
 
-NOT_PORTED = ("varnet cascade pipeline (GPipe)",
-              "unet3d depth-sharded spatial parallel")
+NOT_PORTED: Tuple[str, ...] = ()
 TRAIN_TOL, VAL_TOL, CLASSIFY_TOL = 1e-4, 5e-4, 1e-4
 VARNET_LOSS_TOL, VARNET_DRIFT_TOL, T2_TOL = 1e-5, 1e-3, 1e-5
+PP_LOSS_TOL, SPATIAL_TOL = 1e-6, 1e-4
 
 
 def entry(device: str | torch.device = "cuda"
@@ -171,6 +178,59 @@ def _varnet_tp(n_devices: int, dev: torch.device,
                       for n, g in zip(params, grads)}}
 
 
+def _varnet_pp(dev: torch.device, pipe: Optional[DataGroup]
+               ) -> Dict[str, object]:
+    """One loss-and-gradient step of a two-cascade f32 VarNet, ``loss =
+    mean(|image|^2)`` over a batch of 2 (2 microbatches), its cascades
+    pipelined over ``pipe`` (its gradients averaged over the pipe) or on
+    one device."""
+    rng = np.random.default_rng(4)
+    k, e = (torch.from_numpy(rng.standard_normal(
+        (2, 2, 1, 16, 16, 2)).astype(np.float32)).to(dev) for _ in range(2))
+    model = VarNet(aves=1, num_cascades=2, sens_chans=4, sens_pools=2,
+                   chans=4, pools=2)
+    init_fastmri_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    params = dict(model.named_parameters())
+    with f32_on_card(dev):
+        out = varnet_apply_pipelined(model, k, e, pipe, n_microbatches=2)
+        loss = torch.mean(out * out)
+        grads = pipeline_grads(loss, list(params.values()))
+        if pipe is not None:
+            *grads, loss = average_flat(grads + [loss.detach()], pipe)
+    return {"loss": float(loss.detach()),
+            "grads": {n: g.detach().cpu().numpy()
+                      for n, g in zip(params, grads)}}
+
+
+def _unet3d_spatial(dev: torch.device, group: Optional[DataGroup]
+                    ) -> float:
+    """One epoch's train loss of the (4, 8) 3-D U-Net trainer on a seeded
+    8x16x16 volume (ROI 16x16x8, batch 2, two steps), on a ``(n / 2, 2)``
+    (data, depth) grid of ``group`` or on one device."""
+    rng = np.random.default_rng(5)
+    img = rng.standard_normal((8, 1, 16, 16)).astype(np.float32)
+    msk = np.zeros((8, 16, 16), np.uint8)
+    msk[2:6, 4:12, 4:12] = 1
+    with tempfile.TemporaryDirectory(prefix="dryrun_3d_") as td:
+        os.makedirs(os.path.join(td, "v0"))
+        vol = os.path.join(td, "v0", "volume.npz")
+        np.savez_compressed(vol, img=img, msk=msk)
+        lst = os.path.join(td, "list.txt")
+        with open(lst, "w", encoding="utf-8") as f:
+            f.write(vol + "\n")
+        sp = 2 if group is not None else 1
+        args = UNet3DArgs(train_list=lst, val_list=lst,
+                          out_dir=os.path.join(td, "run"), roi=(16, 16, 8),
+                          channels=(4, 8), classes=1, batch_size=2,
+                          epochs=1, amp=False, samples_per_vol_train=2,
+                          samples_per_vol_val=1, seed=23,
+                          data_parallel=group.world // sp if group else 1,
+                          spatial_parallel=sp)
+        with f32_on_card(dev):
+            return float(UNet3DTrainer(args, dev, group).train_one_epoch())
+
+
 def _t2_sharded(devices: List[torch.device]) -> float:
     """The T2 recon of a seeded 2-slice case with its slices spread over
     ``devices`` against ``devices[0]`` alone; the largest difference."""
@@ -195,13 +255,18 @@ def _t2_sharded(devices: List[torch.device]) -> float:
 def dryrun_rank(group: DataGroup, classify: bool) -> Dict[str, dict]:
     """The dry run's work on one rank of its group: the U-Net step and
     validation, and, where ``classify`` (an even world), the classifier's
-    epoch and the VarNet step on a ``(data, coil)`` grid of the ranks."""
+    epoch, the VarNet step on a ``(data, coil)`` grid of the ranks, the
+    pipelined VarNet step on pipes of two ranks and the 3-D trainer's
+    epoch on a ``(n / 2, 2)`` (data, depth) grid."""
     out = {"unet": _unet_step(group.world, group.device, group)}
     if classify:
         out["classifier"] = _classifier_epoch(group.world, group.device,
                                               group)
         grid = make_recon_grid(group, *varnet_grid_shape(group.world))
         out["varnet_tp"] = _varnet_tp(group.world, group.device, grid)
+        pipe = make_recon_grid(group, group.world // 2, 2).coil
+        out["varnet_pp"] = _varnet_pp(group.device, pipe)
+        out["unet3d_spatial"] = _unet3d_spatial(group.device, group)
     return out
 
 
@@ -223,7 +288,7 @@ def dryrun_check(ranks: List[dict], devices: List[torch.device],
                  where: str) -> dict:
     """Hold each rank's :func:`dryrun_rank` result to the same work on one
     device (``devices[0]``) and print both; raises where they disagree.
-    Returns what ran, its numbers and what is not ported."""
+    Returns what ran and its numbers (``not_ported`` is empty)."""
     n_devices = len(ranks)
     backend = choose_backend(devices)
     classify = "classifier" in ranks[0]
@@ -262,12 +327,24 @@ def dryrun_check(ranks: List[dict], devices: List[torch.device],
               f"reconstruction_rss == unsharded (max difference "
               f"{ref['t2_sharded_recon']['max_abs_diff']:.1e}, rtol / atol "
               f"{T2_TOL})", flush=True)
-        ran += ["classifier_dp", "varnet_tp", "t2_sharded_recon"]
-    print(f"dryrun_multichip({n_devices}) not ported yet (ROADMAP.md Queue "
-          f"1 item 7b-ii): {', '.join(NOT_PORTED)}", flush=True)
+        ref["varnet_pp"] = _check_varnet_pp(ranks, devices[0])
+        ref["unet3d_spatial"] = {"train_loss": _check_unet3d_spatial(
+            ranks, devices[0])}
+        ranks = [{**r, "varnet_pp": {"loss": r["varnet_pp"]["loss"]}}
+                 for r in ranks]
+        ran += ["classifier_dp", "varnet_tp", "t2_sharded_recon",
+                "varnet_pp", "unet3d_spatial"]
     return {"ran": ran, "where": where, "backend": backend,
             "ranks": ranks[0], "one_device": ref,
             "not_ported": list(NOT_PORTED)}
+
+
+def _max_drift(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray]
+               ) -> float:
+    """The largest gradient distance by norm relative to its own (JAX's
+    dry-run measure)."""
+    return max(float(np.linalg.norm(got[n] - g) / (np.linalg.norm(g) + 1e-8))
+               for n, g in want.items())
 
 
 def _check_varnet_tp(ranks: List[dict], dev: torch.device) -> dict:
@@ -283,10 +360,7 @@ def _check_varnet_tp(ranks: List[dict], dev: torch.device) -> dict:
             raise AssertionError(f"dryrun_varnet_tp rank {r}: loss "
                                  f"{got['loss']!r} != one device "
                                  f"{want['loss']!r}")
-        for name, g in want["grads"].items():
-            d = float(np.linalg.norm(got["grads"][name] - g)
-                      / (np.linalg.norm(g) + 1e-8))
-            drift = max(drift, d)
+        drift = max(drift, _max_drift(got["grads"], want["grads"]))
     if not drift < VARNET_DRIFT_TOL:
         raise AssertionError(f"dryrun_varnet_tp: gradient drift "
                              f"{drift:.2e} >= {VARNET_DRIFT_TOL}")
@@ -297,10 +371,47 @@ def _check_varnet_tp(ranks: List[dict], dev: torch.device) -> dict:
     return {"loss": want["loss"], "max_grad_drift": drift}
 
 
+def _check_varnet_pp(ranks: List[dict], dev: torch.device) -> dict:
+    """Hold every rank's pipelined VarNet step to one device: the loss
+    within PP_LOSS_TOL, each gradient's drift within VARNET_DRIFT_TOL, as
+    JAX's ``_dryrun_varnet_pp`` holds them."""
+    want = _varnet_pp(dev, None)
+    drift = 0.0
+    for r, got in enumerate(ranks):
+        got = got["varnet_pp"]
+        if not abs(got["loss"] - want["loss"]) < PP_LOSS_TOL:
+            raise AssertionError(f"dryrun_varnet_pp rank {r}: loss "
+                                 f"{got['loss']!r} != one device "
+                                 f"{want['loss']!r}")
+        drift = max(drift, _max_drift(got["grads"], want["grads"]))
+    if not drift < VARNET_DRIFT_TOL:
+        raise AssertionError(f"dryrun_varnet_pp: gradient drift "
+                             f"{drift:.2e} >= {VARNET_DRIFT_TOL}")
+    print(f"dryrun_varnet_pp(2-stage pipe, 2 microbatches): "
+          f"loss={ranks[0]['varnet_pp']['loss']:.6f} == one device "
+          f"{want['loss']:.6f}, max grad drift {drift:.1e}", flush=True)
+    return {"loss": want["loss"], "max_grad_drift": drift}
+
+
+def _check_unet3d_spatial(ranks: List[dict], dev: torch.device) -> float:
+    """Hold every rank's depth-sharded 3-D train loss to one device within
+    SPATIAL_TOL (JAX's ``_dryrun_unet3d_spatial``); returns one device's."""
+    want = _unet3d_spatial(dev, None)
+    for r, got in enumerate(ranks):
+        if not abs(got["unet3d_spatial"] - want) < SPATIAL_TOL:
+            raise AssertionError(f"dryrun_unet3d_spatial rank {r}: train "
+                                 f"loss {got['unet3d_spatial']!r} != one "
+                                 f"device {want!r}")
+    print(f"dryrun_unet3d_spatial(2-way depth axis): train_loss="
+          f"{ranks[0]['unet3d_spatial']:.6f} == one device {want:.6f}",
+          flush=True)
+    return want
+
+
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
-    """The data-parallel dry run on ``n_devices`` ranks (module
-    docstring); raises where sharded and one-device results disagree.
-    Returns what it ran, its numbers and what it did not run."""
+    """The dry run on ``n_devices`` ranks (module docstring); raises where
+    sharded and one-device results disagree. Returns what it ran and its
+    numbers."""
     devices, where = dryrun_devices(n_devices, device)
     ranks = spawn(dryrun_rank, n_devices, devices,
                   args=(n_devices % 2 == 0,), timeout_s=900.0)

@@ -174,17 +174,44 @@ def synced(model: nn.Module, group) -> Iterator[None]:
 
 class InstanceNorm(nn.Module):
     """Flax ``GroupNorm(num_groups=None, group_size=1)`` over ``(N, C, *)``
-    (see the module docstring)."""
+    (see the module docstring). With a ``depth_band``
+    (``parallel/spatial.py:depth_sharded``) ``x`` is one rank's depth
+    band and the statistics are the whole volume's (see
+    :func:`_band_norm`)."""
 
     def __init__(self, channels: int, eps: float = GN_EPS):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.depth_band = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Flax normalizes the f32 upcast and casts the result back; CUDA's
         # group_norm also wants the input in its parameters' dtype
         acc = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.depth_band is not None:
+            return _band_norm(x.to(acc), self.weight.to(acc),
+                              self.bias.to(acc), self.eps,
+                              self.depth_band.group).to(x.dtype)
         return F.group_norm(x.to(acc), x.shape[1], self.weight.to(acc),
                             self.bias.to(acc), self.eps).to(x.dtype)
+
+
+def _band_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float, group) -> torch.Tensor:
+    """The instance norm of a volume of which ``x`` ``(N, C, d, H, W)`` is
+    one rank's depth band: two passes as the one-rank norm takes them, the
+    mean first (each (sample, channel)'s sum and the plane count summed
+    over ``group`` by one differentiable all-reduce), then the centred
+    squares (a second), so every rank normalizes by the whole volume's
+    statistics."""
+    n, c = x.shape[:2]
+    dims = tuple(range(2, x.dim()))
+    shape = (n, c) + (1,) * (x.dim() - 2)
+    s = all_reduce_sum(torch.cat([x.sum(dim=dims).reshape(-1),
+                                  x.new_full((1,), x[0, 0].numel())]), group)
+    xc = x - (s[:-1] / s[-1]).view(shape)
+    var = all_reduce_sum((xc * xc).sum(dim=dims), group) / s[-1]
+    y = xc * torch.rsqrt(var + eps).view(shape)
+    return y * weight.view(1, c, *shape[2:]) + bias.view(1, c, *shape[2:])

@@ -44,29 +44,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import InstanceNorm, remat
+from ..parallel.spatial import conv3d_band, same_pads
+from .norm import InstanceNorm, at_least_f32, remat
 
 PRELU_INIT = 0.01      # flax.linen.PReLU's default negative_slope
-
-
-def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
-    """``lax.padtype_to_pads`` for "SAME": (before, after) of one
-    dimension of size ``n`` under kernel ``k`` and stride ``s``."""
-    out = -(-n // s)
-    total = max((out - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
 
 
 class SameConv3d(nn.Conv3d):
     """``nn.Conv`` with ``padding="SAME"`` in a compute dtype: pads each
     dimension by :func:`same_pads`, convolves with the kernel cast to the
-    input's dtype, then adds the bias in that dtype."""
+    input's dtype, then adds the bias in that dtype. With a
+    ``depth_band`` (``parallel/spatial.py:depth_sharded``) ``x`` is one
+    rank's depth band and the depth padding comes from its neighbours."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride, padding=0, bias=True)
+        self.depth_band = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
+        if self.depth_band is not None:
+            y = conv3d_band(x, self.weight.to(x.dtype), s, self.depth_band)
+            return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
         pads: List[int] = []
         for n in reversed(x.shape[2:]):      # F.pad: last dimension first
             pads.extend(same_pads(int(n), k, s))
@@ -157,7 +156,7 @@ class ResidualUNet3D(nn.Module):
             y = y + up.bias.to(y.dtype).view(1, -1, 1, 1, 1)
             y = remat(self.remat, self.units[self.depth + 1 + n],
                       torch.cat([y, skip], dim=1))
-        return self.head(y).float()
+        return at_least_f32(self.head(y))
 
 
 def he_normal_(weight: torch.Tensor, fan_in: int,

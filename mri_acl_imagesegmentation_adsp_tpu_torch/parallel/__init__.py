@@ -1,6 +1,8 @@
-"""Data and coil parallelism over ranks of ``torch.distributed`` (the JAX
-package's ``parallel/mesh.py``); its point-to-point parts
-(``parallel/pipeline.py``, ``parallel/spatial.py``) are not ported yet."""
+"""Data, coil, depth and pipeline parallelism over ranks of
+``torch.distributed`` (the JAX package's ``parallel/``): the collectives
+and the rank grids (``mesh.py``), the depth-halo 3-D convolutions and the
+depth-sharded 3-D U-Net (``spatial.py``), and GPipe over VarNet's cascades
+(``pipeline.py``)."""
 
 from .mesh import (
     DataGroup, ReconGrid, all_reduce_, all_reduce_sum, any_rank,
@@ -8,6 +10,10 @@ from .mesh import (
     gather_rows, grid_average, host_major_grid, make_mesh, make_recon_grid,
     mesh_devices, row_slice, shard_dim, shard_rows, spawn,
     volume_affine_shards)
+from .pipeline import gpipe, stack_cascade_params, varnet_apply_pipelined
+from .spatial import (
+    DepthGrid, conv3d_depth_sharded, conv3d_stack_depth_sharded,
+    make_depth_mesh, unet3d_depth_sharded_apply)
 
 __all__ = [
     "DataGroup", "ReconGrid", "all_reduce_", "all_reduce_sum", "any_rank",
@@ -16,4 +22,7 @@ __all__ = [
     "host_major_grid", "make_mesh", "make_recon_grid", "mesh_devices",
     "row_slice", "shard_dim", "shard_rows", "spawn",
     "volume_affine_shards",
+    "DepthGrid", "conv3d_depth_sharded", "conv3d_stack_depth_sharded",
+    "make_depth_mesh", "unet3d_depth_sharded_apply",
+    "gpipe", "stack_cascade_params", "varnet_apply_pipelined",
 ]

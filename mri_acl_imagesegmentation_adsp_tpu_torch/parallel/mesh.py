@@ -29,6 +29,10 @@ and XLA inserts every cross-device sum. Here one process drives one device
 - :func:`gather_rows` gathers row shares into the whole batch on every rank
   as one all-reduce of a zeroed buffer that each rank fills with its rows,
   which is exact (one non-zero addend an element).
+- :func:`exchange`, :func:`isend` and :func:`recv` are the point-to-point
+  ops of ``parallel/spatial.py`` and ``parallel/pipeline.py`` (JAX's
+  ``ppermute``): ``batch_isend_irecv`` inside a group, peers named by
+  their global rank, every send counted in ``P2P_COUNTS``.
 
 Ranks run over NCCL, one card each, or over gloo: on the CPU, and where a
 caller places several ranks on one card (NCCL refuses two ranks on one
@@ -361,6 +365,95 @@ def all_reduce_sum(x: torch.Tensor, group: Optional[DataGroup]
     if group is None:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Point to point
+# ---------------------------------------------------------------------------
+
+# sends made by exchange / isend since the last reset_p2p_counts, and bytes
+P2P_COUNTS = {"sends": 0, "bytes": 0}
+
+
+def reset_p2p_counts() -> None:
+    P2P_COUNTS.update(sends=0, bytes=0)
+
+
+def global_rank(group: DataGroup, rank: int) -> int:
+    """The default group's rank of ``group``'s rank ``rank`` (a peer of a
+    point-to-point op is named by its global rank)."""
+    if group.pg is None or group.pg is dist.group.WORLD:
+        return rank
+    return dist.get_global_rank(group.pg, rank)
+
+
+def _wire(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """``t`` as it goes on the wire: contiguous, and on the host under
+    gloo (whose point-to-point ops take CPU tensors)."""
+    t = t.detach()
+    if group.backend == "gloo" and t.is_cuda:
+        return t.cpu()
+    return t.contiguous()
+
+
+def _count(t: torch.Tensor) -> None:
+    P2P_COUNTS["sends"] += 1
+    P2P_COUNTS["bytes"] += t.numel() * t.element_size()
+
+
+def exchange(sends: Sequence, recvs: Sequence, group: DataGroup,
+             tag: int = 0) -> List[torch.Tensor]:
+    """Post every send ``(tensor, peer)`` and every receive ``(like,
+    peer)`` (peers as ranks of ``group``) in one ``batch_isend_irecv`` and
+    wait for them all; returns the received tensors, each shaped, typed
+    and placed as its ``like``. Every rank posts its sends before it waits,
+    so ranks that send to each other do not deadlock. A failed op raises
+    on every rank that waits on it."""
+    ops, bufs = [], []
+    for t, peer in sends:
+        w = _wire(t, group)
+        _count(w)
+        ops.append(dist.P2POp(dist.isend, w, global_rank(group, peer),
+                              group.pg, tag))
+    for like, peer in recvs:
+        host = group.backend == "gloo" and like.is_cuda
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if host else like.device)
+        ops.append(dist.P2POp(dist.irecv, buf, global_rank(group, peer),
+                              group.pg, tag))
+        bufs.append(buf)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(like.device) for b, (like, _) in zip(bufs, recvs)]
+
+
+# sends of isend not yet waited for: (work, the buffer it reads)
+_PENDING: list = []
+
+
+def isend(t: torch.Tensor, peer: int, group: DataGroup, tag: int) -> None:
+    """Send ``t`` to ``group``'s rank ``peer`` without waiting; the send is
+    waited for by the next :func:`wait_sends` (so a sender never blocks on
+    a receiver that is still busy elsewhere)."""
+    w = _wire(t, group)
+    _count(w)
+    _PENDING.append((dist.isend(w, global_rank(group, peer),
+                                group=group.pg, tag=tag), w))
+
+
+def wait_sends() -> None:
+    """Wait for every send that :func:`isend` has posted."""
+    while _PENDING:
+        work, _ = _PENDING.pop(0)
+        work.wait()
+
+
+def recv(like: torch.Tensor, peer: int, group: DataGroup,
+         tag: int) -> torch.Tensor:
+    """Receive from ``group``'s rank ``peer`` the message of ``tag``, a
+    tensor shaped, typed and placed as ``like``; blocks until it is in."""
+    return exchange((), [(like, peer)], group, tag)[0]
 
 
 def gather_rows(local: torch.Tensor, batch: int,

@@ -17,7 +17,10 @@ batch-global sums of the Dice and Tversky losses are summed over the ranks
 by one differentiable all-reduce before their ratio, so each rank's loss
 holds the global batch's Dice term; the means (BCE, CE, focal) stay each
 rank's mean of its equal share, whose mean over the ranks is the global
-mean.
+mean. The 3-D DiceCE losses take the depth sub-group of a depth-sharded
+volume: each per-sample Dice sum, and each mean's sum and count, is summed
+over the band ranks before its ratio, so every band rank holds the whole
+volume's loss.
 """
 
 from __future__ import annotations
@@ -132,36 +135,57 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
 
 
 def _dice_3d(p: torch.Tensor, t: torch.Tensor, smooth_nr: float,
-             smooth_dr: float) -> torch.Tensor:
+             smooth_dr: float, group=None) -> torch.Tensor:
     """MONAI's per-sample, per-class soft Dice loss (``batch=False``, no
-    masking of absent classes), mean over samples and classes."""
+    masking of absent classes), mean over samples and classes. On a depth
+    band (``group``, the depth sub-group) the per-sample sums are the
+    whole volume's, summed over the band ranks."""
     dims = tuple(range(2, p.dim()))
-    inter = torch.sum(p * t, dim=dims)
-    denom = torch.sum(p, dim=dims) + torch.sum(t, dim=dims)
-    return torch.mean(1.0 - (2.0 * inter + smooth_nr) / (denom + smooth_dr))
+    inter, psum, tsum = all_reduce_sum(torch.stack([
+        torch.sum(p * t, dim=dims), torch.sum(p, dim=dims),
+        torch.sum(t, dim=dims)]), group)
+    return torch.mean(1.0 - (2.0 * inter + smooth_nr)
+                      / (psum + tsum + smooth_dr))
+
+
+def _voxel_mean(v: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``v`` over its elements; on a depth band, over the
+    whole volume's (the sum and the count summed over the band ranks)."""
+    if group is None:
+        return torch.mean(v)
+    s = all_reduce_sum(torch.stack([v.sum(), v.new_tensor(v.numel())]),
+                       group)
+    return s[0] / s[1]
 
 
 def dice_ce_loss_3d_binary(logits: torch.Tensor, targets: torch.Tensor,
                            smooth_nr: float = 1e-5,
-                           smooth_dr: float = 1e-5) -> torch.Tensor:
+                           smooth_dr: float = 1e-5, group=None
+                           ) -> torch.Tensor:
     """MONAI ``DiceCELoss(sigmoid=True)`` for binary ``(N, 1, D, H, W)``:
-    the per-sample soft Dice plus the BCE, summed 1:1."""
-    p = torch.sigmoid(logits.float())
-    return (_dice_3d(p, targets.float(), smooth_nr, smooth_dr)
-            + soft_bce_loss(logits, targets))
+    the per-sample soft Dice plus the BCE, summed 1:1. ``group``: the
+    depth sub-group when the logits are one rank's depth band."""
+    p = torch.sigmoid(_f(logits))
+    t = targets.to(p.dtype)
+    return (_dice_3d(p, t, smooth_nr, smooth_dr, group)
+            + _voxel_mean(_bce_terms(_f(logits), t), group))
 
 
 def dice_ce_loss_3d_multiclass(logits: torch.Tensor, targets: torch.Tensor,
                                smooth_nr: float = 1e-5,
-                               smooth_dr: float = 1e-5) -> torch.Tensor:
+                               smooth_dr: float = 1e-5, group=None
+                               ) -> torch.Tensor:
     """MONAI ``DiceCELoss(softmax=True, to_onehot_y=True)``: the per-sample
     per-class soft Dice of softmax probabilities against one-hot labels
-    (background included) plus the softmax CE, summed 1:1."""
+    (background included) plus the softmax CE, summed 1:1. ``group``: as
+    the binary loss's."""
     c = logits.shape[1]
-    p = torch.softmax(logits.float(), dim=1)
-    t1h = _one_hot(targets, c).reshape(p.shape)
-    return (_dice_3d(p, t1h, smooth_nr, smooth_dr)
-            + cross_entropy_loss(logits, targets))
+    p = torch.softmax(_f(logits), dim=1)
+    t1h = _one_hot(targets, c).reshape(p.shape).to(p.dtype)
+    logp = torch.log_softmax(_f(logits), dim=1)
+    nll = -torch.gather(logp, 1, targets.long()[:, None])
+    return (_dice_3d(p, t1h, smooth_nr, smooth_dr, group)
+            + _voxel_mean(nll, group))
 
 
 _BINARY = {"dice_bce": "dice_bce", "bce_dice": "dice_bce",

@@ -38,11 +38,28 @@ reference's ``src/train/train_unet3d.py``.
   average of the ranks' losses is the global batch's. A batch the world
   does not divide (the batch-1 validation) runs whole on every rank. Rank 0
   alone writes the run directory.
+- ``spatial_parallel`` (JAX :154-163, :216-235, :262-280): the ranks form
+  a ``(data, depth)`` grid (``parallel/spatial.py:make_depth_mesh``, rank
+  ``d * spatial_parallel + s``) of ``data_parallel * spatial_parallel``
+  ranks (the CLI spawns them). Every rank draws the same patches; a data
+  rank keeps its rows, a depth rank its band of each patch's depth
+  (``depth_bands``: whole units of ``2 ** (len(channels) - 1)`` planes; a
+  depth of fewer units than depth ranks runs whole on each, as JAX
+  replicates a depth its mesh does not divide). The model runs on the band
+  (halo exchanges, norm statistics summed over the depth ranks) and the
+  DiceCE's sums and counts are summed over the depth ranks, so every
+  depth rank computes the same loss, the loss of its rows. The gradient
+  rule is the mean over the whole grid (``grid_average``'s rule): the
+  depth sums' backward sums the upstream gradient over the depth ranks,
+  so each rank's gradient is that of the sum of its depth ranks' losses
+  with respect to its own copy of the weights, and these summed over the
+  depth ranks are ``spatial_parallel`` times the loss's gradient; their
+  mean over the depth ranks is the loss's gradient, and the mean over the
+  data ranks then the global batch's. Validation runs on the grid too.
 
 The weights come from a CPU generator seeded with ``args.seed``; ``device``
 is an argument of the trainer. Refused, naming the flag:
-``spatial_parallel`` above 1 (depth sharding, ROADMAP Queue 1 item 7b)
-and ``ckpt_backend="orbax"`` (a JAX library; the port's snapshots take its
+``ckpt_backend="orbax"`` (a JAX library; the port's snapshots take its
 place).
 """
 
@@ -64,6 +81,7 @@ from ..models.unet3d import init_weights3d
 from ..parallel.mesh import (
     DataGroup, any_rank, average_flat, barrier, mesh_devices, row_slice,
     spawn)
+from ..parallel.spatial import band_for, depth_sharded, make_depth_mesh
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt_lib
 from .losses import dice_ce_loss_3d_binary, dice_ce_loss_3d_multiclass
@@ -187,13 +205,10 @@ class UNet3DArgs:
 def check_args3d(args: UNet3DArgs) -> None:
     """Raise ``ValueError`` naming the flag of a setting the port cannot
     run."""
-    if args.spatial_parallel > 1:
-        raise ValueError(
-            f"--spatial-parallel {args.spatial_parallel} is not ported: "
-            "depth-sharded 3-D training waits for the model-parallel slice "
-            "(ROADMAP.md Queue 1 item 7b)")
-    if args.data_parallel < 1:
-        raise ValueError(f"--data-parallel {args.data_parallel} is below 1")
+    for name in ("data_parallel", "spatial_parallel"):
+        if getattr(args, name) < 1:
+            raise ValueError(f"--{name.replace('_', '-')} "
+                             f"{getattr(args, name)} is below 1")
     if args.ckpt_backend != "msgpack":
         raise ValueError(f"--ckpt-backend {args.ckpt_backend!r} is not "
                          "ported: orbax is a JAX library; the port's own "
@@ -206,21 +221,31 @@ def check_args3d(args: UNet3DArgs) -> None:
 
 class UNet3DTrainer:
     """``UNet3DTrainer(args, device).fit()`` trains and writes
-    ``args.out_dir``; with ``group`` (of ``data_parallel`` ranks), one rank
-    of a data-parallel run on ``group.device``."""
+    ``args.out_dir``; with ``group`` (of ``data_parallel *
+    spatial_parallel`` ranks), one rank of a parallel run on
+    ``group.device``."""
 
     def __init__(self, args: UNet3DArgs,
                  device: str | torch.device = "cuda",
                  group: Optional[DataGroup] = None):
         check_args3d(args)
-        if (group.world if group is not None else 1) != args.data_parallel:
+        world = args.data_parallel * args.spatial_parallel
+        if (group.world if group is not None else 1) != world:
+            sp = (f" x --spatial-parallel {args.spatial_parallel}"
+                  if args.spatial_parallel > 1 else "")
             raise ValueError(
-                f"--data-parallel {args.data_parallel} on "
+                f"--data-parallel {args.data_parallel}{sp} on "
                 f"{group.world if group is not None else 1} rank(s): start "
                 "the ranks with this module's CLI (or parallel.spawn, "
                 "passing each rank's group)")
         self.args = args
         self.group = group
+        # the rows' sub-group and the depth bands' (None: one rank)
+        self.data, self.depth = group, None
+        if args.spatial_parallel > 1:
+            grid = make_depth_mesh(group, args.spatial_parallel)
+            self.data, self.depth = grid.data, grid.depth
+        self.unit = 2 ** (len(args.channels) - 1)
         self.primary = group is None or group.primary
         self.device = (group.device if group is not None
                        else resolve_device(device))
@@ -276,22 +301,39 @@ class UNet3DTrainer:
             x, y = torch.from_numpy(x), torch.from_numpy(y)
         return x.to(self.device), y.to(self.device)
 
-    def _loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _loss(self, x: torch.Tensor, y: torch.Tensor, depth=None
+              ) -> torch.Tensor:
         logits = self.model(x)
         tg = y[:, None].float() if self.args.classes == 1 else y.long()
-        return self.loss_fn(logits, tg)
+        return self.loss_fn(logits, tg, group=depth)
+
+    def _banded(self, x: torch.Tensor, y: torch.Tensor, fn):
+        """``fn(x, y, depth_group)`` on this rank's depth band of the
+        patches ``x`` ``(B, 1, D, H, W)`` and labels ``y`` ``(B, D, H,
+        W)``, the model on that band (the whole patches where they are
+        replicated)."""
+        xb, band, _ = band_for(x, self.depth, self.unit)
+        if band is None:
+            return fn(x, y, None)
+        with depth_sharded(self.model, band):
+            return fn(xb, y.narrow(1, band.start, band.size), band.group)
 
     def grads_one(self, x: torch.Tensor, y: torch.Tensor
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The loss of one batch and the gradients of every parameter; under
-        a group, of the global batch ``x``, ``y`` (this rank runs its rows),
-        equal on every rank."""
+        a group, of the global batch ``x``, ``y`` (this rank runs its rows
+        and its depth band), equal on every rank: the grid's mean (module
+        docstring)."""
         self.model.train()
-        rows = row_slice(int(x.shape[0]), self.group)
+        rows = row_slice(int(x.shape[0]), self.data)
         if rows is not None:
             x, y = x[rows], y[rows]
-        loss = self._loss(x, y)
-        grads = list(torch.autograd.grad(loss, self.params))
+
+        def step(xb, yb, depth):
+            # the backward pass inside the band: remat recomputes units
+            loss = self._loss(xb, yb, depth)
+            return loss, list(torch.autograd.grad(loss, self.params))
+        loss, grads = self._banded(x, y, step)
         if self.group is None:
             return loss.detach(), grads
         out = average_flat(grads + [loss.detach()], self.group)
@@ -335,7 +377,7 @@ class UNet3DTrainer:
     @torch.no_grad()
     def validate(self) -> float:
         self.model.eval()
-        losses = [self._loss(*self._to_device(x, y))
+        losses = [self._banded(*self._to_device(x, y), self._loss)
                   for x, y in self.val_ds.batches(1, shuffle=False)]
         return _mean_of(losses)
 
@@ -451,7 +493,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks to train on, one card each (CPU ranks "
                         "with --device cpu)")
     p.add_argument("--spatial-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="depth-shard every patch over N ranks (halo "
+                        "exchange); with --data-parallel D, D x N ranks")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest snapshot in out-dir")
     p.add_argument("--save-resume-every", type=int, default=0,
@@ -491,18 +534,18 @@ def parse_args(argv=None) -> UNet3DArgs:
 
 
 def _fit_rank(group: DataGroup, args: UNet3DArgs) -> Dict[str, Any]:
-    """One spawned rank of ``--data-parallel``."""
+    """One spawned rank of ``--data-parallel`` x ``--spatial-parallel``."""
     return UNet3DTrainer(args, group.device, group).fit()
 
 
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
     args = _args_of(ns)
-    if args.data_parallel > 1:
+    world = args.data_parallel * args.spatial_parallel
+    if world > 1:
         check_args3d(args)
-        devices = mesh_devices(args.data_parallel, ns.device)
-        spawn(_fit_rank, args.data_parallel, devices, args=(args,),
-              timeout_s=1e6)
+        spawn(_fit_rank, world, mesh_devices(world, ns.device),
+              args=(args,), timeout_s=1e6)
         return 0
     UNet3DTrainer(args, ns.device).fit()
     return 0

@@ -39,8 +39,18 @@ rank takes the same step. ``validate`` and ``reconstruct`` run on the grid
 too: a sample is a batch of one, whole on every data rank and split over
 the coil ranks. Rank 0 writes the run's files.
 
-Refused, naming what stands in: ``pipe_mesh`` (the cascade pipeline, point
-to point, ROADMAP.md Queue 1 item 7b-ii), ``ckpt_backend="orbax"`` and
+``pipe_mesh``: a ``parallel/mesh.py:DataGroup`` of pipe ranks (JAX
+:109-134, :195-201): the cascades run as GPipe stages over its ranks
+(``parallel/pipeline.py:varnet_apply_pipelined``), one microbatch a sample
+of the batch, as JAX runs them; the sensitivity model and the final
+combine run on every rank. Every rank holds the whole model, reads the
+same samples and computes the same loss; the gradients are averaged over
+the pipe ranks (the pipeline's rule, ``parallel/pipeline.py``), so every
+rank takes the same step. ``validate`` and ``reconstruct`` run pipelined
+too, and rank 0 writes. ``num_cascades`` must tile the pipe, and ``mesh``
+and ``pipe_mesh`` exclude each other, as in JAX.
+
+Refused, naming what stands in: ``ckpt_backend="orbax"`` and
 ``ckpt_async`` (JAX libraries; the port's own snapshots,
 ``train/checkpoint.py``, take their place).
 """
@@ -58,8 +68,9 @@ import torch
 from ..data.prefetch import prefetch
 from ..data.transforms import center_crop, center_crop_to_smallest
 from ..models.fastmri_unet import init_fastmri_weights
-from ..parallel.mesh import (ReconGrid, any_rank, barrier, grid_average,
-                             row_slice)
+from ..parallel.mesh import (DataGroup, ReconGrid, any_rank, average_flat,
+                             barrier, grid_average, row_slice)
+from ..parallel.pipeline import pipeline_grads, varnet_apply_pipelined
 from ..recon.varnet import VarNet
 from ..utils.device import f32_on_card, resolve_device, upload
 from . import checkpoint as ckpt_lib
@@ -139,15 +150,28 @@ def build_varnet_from_args(a, aves: Optional[int] = None, sens_aves: int = 1,
                   mesh=mesh)
 
 
+def check_pipe(args: VarNetArgs, n_pipe: int, with_mesh: bool) -> None:
+    """JAX's pipe checks: a pipe excludes a ``(data, coil)`` mesh, and the
+    cascades must tile its ``n_pipe`` ranks."""
+    if with_mesh:
+        raise ValueError("mesh (DP x coil-TP) and pipe_mesh (cascade PP) "
+                         "are mutually exclusive")
+    if args.num_cascades % n_pipe:
+        raise ValueError(f"{args.num_cascades} cascades do not tile a "
+                         f"{n_pipe}-way pipe axis")
+
+
 def check_varnet_args(args: VarNetArgs, mesh=None, pipe_mesh=None) -> None:
-    """Raise ``ValueError`` naming what the port cannot run."""
-    if pipe_mesh is not None:
-        raise ValueError("pipe_mesh is not ported: the cascade pipeline "
-                         "(GPipe, point to point) waits for ROADMAP.md "
-                         "Queue 1 item 7b-ii; a (data, coil) mesh runs")
+    """Raise ``ValueError`` naming what the port cannot run, or what a
+    pipe cannot hold."""
     if mesh is not None and not isinstance(mesh, ReconGrid):
         raise TypeError(f"mesh must be a parallel.mesh.ReconGrid, got "
                         f"{type(mesh).__name__}")
+    if pipe_mesh is not None:
+        if not isinstance(pipe_mesh, DataGroup):
+            raise TypeError(f"pipe_mesh must be a parallel.mesh.DataGroup, "
+                            f"got {type(pipe_mesh).__name__}")
+        check_pipe(args, pipe_mesh.world, mesh is not None)
     if args.ckpt_backend != "msgpack":
         raise ValueError(f"ckpt_backend {args.ckpt_backend!r} is not "
                          "ported: orbax is a JAX library; the port's own "
@@ -169,6 +193,7 @@ def crop_pair(target: torch.Tensor, out: torch.Tensor, crop: int):
 def varnet_loss(model: VarNet, kspace, espirit, target, max_value,
                 crop: int) -> torch.Tensor:
     """The training loss: ``1 - SSIM`` of the direction-combined output
+    (``model(kspace, espirit)``, the model or a pipelined forward)
     against the target, both cropped by :func:`crop_pair`."""
     target, out = crop_pair(target, combine_directions(model(kspace,
                                                              espirit)), crop)
@@ -182,7 +207,8 @@ def _no_mark(stage: str) -> None:
 class VarNetTrainer:
     """``VarNetTrainer(args, train_ds, val_ds, device=...).fit()``; the
     datasets are indexable sequences of ``VarNetSample``. With ``mesh`` (a
-    ``ReconGrid``), one rank of a grid run on ``mesh.device``."""
+    ``ReconGrid``), one rank of a grid run on ``mesh.device``; with
+    ``pipe_mesh`` (a ``DataGroup``), one rank of a pipe."""
 
     def __init__(self, args: VarNetArgs, train_ds=None, val_ds=None,
                  mesh: Optional[ReconGrid] = None, pipe_mesh=None,
@@ -190,9 +216,10 @@ class VarNetTrainer:
         check_varnet_args(args, mesh, pipe_mesh)
         self.args = args
         self.mesh = mesh
-        self.group = mesh.world if mesh is not None else None
-        self.primary = mesh is None or mesh.primary
-        self.device = (mesh.device if mesh is not None
+        self.pipe = pipe_mesh
+        self.group = mesh.world if mesh is not None else pipe_mesh
+        self.primary = self.group is None or self.group.primary
+        self.device = (self.group.device if self.group is not None
                        else resolve_device(device))
         os.makedirs(args.out_dir, exist_ok=True)
         self.train_ds = train_ds
@@ -225,6 +252,15 @@ class VarNetTrainer:
         decays = self.epoch // self.args.lr_step_size
         return self.args.lr * (self.args.lr_gamma ** decays)
 
+    def _forward(self, kspace: torch.Tensor, espirit: torch.Tensor
+                 ) -> torch.Tensor:
+        """The model's ``|image|``, its cascades pipelined on a pipe (one
+        microbatch a sample)."""
+        if self.pipe is None:
+            return self.model(kspace, espirit)
+        return varnet_apply_pipelined(self.model, kspace, espirit, self.pipe,
+                                      n_microbatches=int(kspace.shape[0]))
+
     def upload_batch(self, batch) -> tuple:
         """A list of same-shape samples as device tensors ``(kspace,
         espirit, target, max_value)``."""
@@ -241,17 +277,23 @@ class VarNetTrainer:
         optimizer's parameter order; ``mark`` is called after the forward
         and loss (``"forward_loss"``) and after the backward
         (``"backward"``). On a grid, of the global batch: averaged over
-        every rank (``grid_average``), equal on every rank."""
+        every rank (``grid_average``), equal on every rank; on a pipe,
+        averaged over its ranks (``parallel/pipeline.py``)."""
         self.model.train()
         if self.mesh is not None:
             rows = row_slice(int(target.shape[0]), self.mesh.data)
             if rows is not None:
                 target, max_value = target[rows], max_value[rows]
         with f32_on_card(self.device):
-            loss = varnet_loss(self.model, kspace, espirit, target,
+            loss = varnet_loss(self._forward, kspace, espirit, target,
                                max_value, self.args.crop)
             mark("forward_loss")
-            grads = torch.autograd.grad(loss, self.optimizer.params)
+            if self.pipe is not None:
+                grads = pipeline_grads(loss, self.optimizer.params)
+                *grads, loss = average_flat(grads + [loss.detach()],
+                                            self.pipe)
+            else:
+                grads = torch.autograd.grad(loss, self.optimizer.params)
             if self.mesh is not None:
                 *grads, loss = grid_average(list(grads) + [loss.detach()],
                                             self.mesh)
@@ -296,7 +338,7 @@ class VarNetTrainer:
         k = upload(sample.kspace[None], self.device)
         e = upload(sample.espirit[None], self.device)
         with f32_on_card(self.device):
-            return combine_directions(self.model(k, e))[0]
+            return combine_directions(self._forward(k, e))[0]
 
     @torch.no_grad()
     def validate(self) -> Dict[str, float]:

@@ -245,12 +245,17 @@ def test_infer_cli_matches_jax_cli(tmp_path, capsys):
 
 
 def test_infer_cli_refuses_what_is_not_ported(capsys):
-    """Depth-sharded 3-D inference, and data-parallel 3-D inference (a
-    whole volume is one forward), raise naming their flag, and a run
-    needs a checkpoint or an artifact."""
-    for flag, says in ((["--ckpt3d", "b.ckpt", "--spatial-parallel", "2"],
-                        "--spatial-parallel 2"),
-                       (["--spatial-parallel", "2"], "--spatial-parallel 2"),
+    """``--ckpt3d --spatial-parallel 2`` is taken now: it asks for its
+    cards (none here; the ranks run on the CPU in
+    ``tests/test_torch_spatial.py``). Depth sharding without ``--ckpt3d``
+    and data-parallel 3-D inference (a whole volume is one forward) raise
+    naming their flag, and a run needs a checkpoint or an artifact."""
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="requested 2 devices, have 0"):
+            infer.main(["--ckpt3d", "b.ckpt", "--list", "l.txt",
+                        "--spatial-parallel", "2"])
+    for flag, says in ((["--spatial-parallel", "2"],
+                        "--spatial-parallel 2 depth-shards a --ckpt3d"),
                        (["--ckpt3d", "b.ckpt", "--data-parallel", "2"],
                         "--data-parallel 2 splits 2-D batches"),
                        (["--quant", "int4"], "invalid choice")):

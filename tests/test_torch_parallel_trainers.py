@@ -153,18 +153,26 @@ def test_launcher_refuses_more_ranks_than_cards(tmp_path):
 
 
 def test_dryrun_multichip_on_two_cpu_ranks(capsys):
+    """Every part of JAX's dry run ran, each held to one device."""
     out = graft_entry.dryrun_multichip(2, device="cpu")
     assert out["ran"] == ["unet_dp_sharded_store", "classifier_dp",
-                          "varnet_tp", "t2_sharded_recon"]
-    assert graft_entry.NOT_PORTED == ("varnet cascade pipeline (GPipe)",
-                                      "unet3d depth-sharded spatial parallel")
+                          "varnet_tp", "t2_sharded_recon", "varnet_pp",
+                          "unet3d_spatial"]
+    assert graft_entry.NOT_PORTED == () and out["not_ported"] == []
     tp = out["one_device"]["varnet_tp"]
     assert tp["max_grad_drift"] < graft_entry.VARNET_DRIFT_TOL
     assert out["one_device"]["t2_sharded_recon"]["max_abs_diff"] <= (
         graft_entry.T2_TOL)
+    pp = out["one_device"]["varnet_pp"]
+    assert pp["max_grad_drift"] < graft_entry.VARNET_DRIFT_TOL
+    assert abs(out["ranks"]["varnet_pp"]["loss"] - pp["loss"]) < (
+        graft_entry.PP_LOSS_TOL)
+    assert abs(out["ranks"]["unet3d_spatial"] - out["one_device"][
+        "unet3d_spatial"]["train_loss"]) < graft_entry.SPATIAL_TOL
     assert out["backend"] == "gloo" and out["where"] == "2 CPU ranks"
-    assert set(out["not_ported"]) == set(graft_entry.NOT_PORTED)
     said = capsys.readouterr().out
-    assert "sharded == replicated" in said and "not ported yet" in said
+    assert "sharded == replicated" in said and "not ported" not in said
     assert "dryrun_varnet_tp(1x2 data x coil)" in said
+    assert "dryrun_varnet_pp(2-stage pipe" in said
+    assert "dryrun_unet3d_spatial(2-way depth axis)" in said
     json.dumps(out)                 # chip_smoke.py prints it as one line

@@ -311,8 +311,10 @@ def test_cli_parses_as_jax_and_refuses_what_is_not_ported(packs, tmp_path):
     assert t3d.UNet3DArgs() == t3d.UNet3DArgs(**jt3d.UNet3DArgs().__dict__)
     assert t3d.main([*argv, "--device", "cpu"]) == 0
     assert _log(tmp_path / "cli")[0] == "epoch,train_loss,val_loss,lr"
+    # a parallel trainer needs its ranks (the CLI spawns them)
     for kw, flag in (({"data_parallel": 2}, "--data-parallel 2 on 1 rank"),
-                     ({"spatial_parallel": 2}, "--spatial-parallel 2"),
+                     ({"spatial_parallel": 2},
+                      "--spatial-parallel 2 on 1 rank"),
                      ({"ckpt_backend": "orbax"}, "--ckpt-backend")):
         with pytest.raises(ValueError, match=flag):
             t3d.UNet3DTrainer(_args(t3d.UNet3DArgs, packs,
@@ -324,6 +326,18 @@ def test_cli_parses_as_jax_and_refuses_what_is_not_ported(packs, tmp_path):
     log = _log(tmp_path / "dp")
     assert log[0] == "epoch,train_loss,val_loss,lr" and len(log) == 2
     assert os.path.isfile(tmp_path / "dp" / "best3d.ckpt")
+    # --spatial-parallel 2: two CPU ranks, each patch's depth in two bands
+    # of two 2-plane units; against the one-rank run (bf16, --amp): the
+    # train loss within 1e-4, the validation loss, after a bf16 AdamW step,
+    # within 1e-3 (bf16's spacing there is 1.6e-2; the f32 trainer is held
+    # to 1e-4 in tests/test_torch_spatial.py)
+    assert t3d.main([*argv[:5], str(tmp_path / "sp"), *argv[6:],
+                     "--spatial-parallel", "2", "--device", "cpu"]) == 0
+    one, two = _log(tmp_path / "cli"), _log(tmp_path / "sp")
+    assert len(two) == 2
+    (tr1, vl1), (tr2, vl2) = ([float(v) for v in log[1].split(",")[1:3]]
+                              for log in (one, two))
+    assert abs(tr1 - tr2) < 1e-4 and abs(vl1 - vl2) < 1e-3, (one, two)
 
 
 # ---------------------------------------------------------------------------

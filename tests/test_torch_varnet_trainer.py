@@ -300,16 +300,17 @@ def test_resume_and_preemption_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "ReconGrid"), ({"pipe_mesh": object()}, "item 7"),
+    ({"mesh": object()}, "ReconGrid"),
+    ({"pipe_mesh": object()}, "DataGroup"),
     ({"ckpt_backend": "orbax"}, "orbax"), ({"ckpt_async": True}, "orbax")])
 def test_varnet_trainer_refusals(kw, match, tmp_path):
-    """A ``mesh`` must be a ``ReconGrid`` (the grid runs:
-    ``tests/test_torch_varnet_shard.py``); the cascade pipeline and the
-    orbax options are refused."""
+    """A ``mesh`` must be a ``ReconGrid`` and a ``pipe_mesh`` a
+    ``DataGroup`` (the grid runs: ``tests/test_torch_varnet_shard.py``;
+    the pipe: ``tests/test_torch_pipeline.py``); the orbax options are
+    refused."""
     args = {k: v for k, v in kw.items() if k.startswith("ckpt")}
     meshes = {k: v for k, v in kw.items() if k.endswith("mesh")}
-    with pytest.raises(TypeError if "mesh" in kw else ValueError,
-                       match=match):
+    with pytest.raises(TypeError if meshes else ValueError, match=match):
         tvt.VarNetTrainer(tvt.VarNetArgs(out_dir=str(tmp_path), **args),
                           device="cpu", **meshes)
 
@@ -501,11 +502,12 @@ def test_cli_train_varnet_train_then_test(dwi_root, tmp_path):
                                   ["--ckpt-backend", "orbax"],
                                   ["--ckpt-async"]])
 def test_cli_train_varnet_refusals(flag, tmp_path, capsys):
-    """``--data-parallel`` / ``--coil-parallel`` are taken now: they ask
-    for their cards (none here; the grid runs on CPU ranks in
-    ``tests/test_torch_varnet_shard.py``); ``--pipeline-parallel`` and the
-    orbax options are refused."""
-    if flag[0] in ("--data-parallel", "--coil-parallel"):
+    """``--data-parallel`` / ``--coil-parallel`` / ``--pipeline-parallel``
+    are taken now: they ask for their cards (none here; the grid runs on
+    CPU ranks in ``tests/test_torch_varnet_shard.py``, the pipe in
+    ``tests/test_torch_pipeline.py``); the orbax options are refused."""
+    if flag[0] in ("--data-parallel", "--coil-parallel",
+                   "--pipeline-parallel"):
         if not torch.cuda.is_available():
             with pytest.raises(ValueError,
                                match="requested 2 devices, have 0"):
@@ -515,7 +517,7 @@ def test_cli_train_varnet_refusals(flag, tmp_path, capsys):
         train_varnet.main(["--data-path", str(tmp_path), *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("7b-ii" if "parallel" in flag[0] else "orbax") in err
+    assert "orbax" in err
 
 
 def test_cli_evaluate_matches_jax(tmp_path):
