@@ -77,7 +77,11 @@ Phases, each printing one JSON line with its seconds:
      16x320x320 batch timed at f32 (TF32 off), bf16, folded and int8; a
      launcher run preempted after its first chunk by ``request_preempt()``
      and resumed with --resume, its history and best.ckpt bit-equal to a
-     straight run (cuDNN deterministic); a launcher run with
+     straight run (cuDNN deterministic); the same cut run with
+     --ckpt-async publishing the blocking cut's snapshot names, tensors and
+     host.json bytes and resumed with --ckpt-async bit-equal to the
+     straight run, and an async save followed at once by in-place train
+     steps whose snapshot holds the state before them; a launcher run with
      --encoder-weights (a seeded torchvision ResNet34 file) whose encoder
      holds the file's weights before the first step, with
      --profile-epochs 1 leaving a trace that names CUDA kernels;
@@ -85,7 +89,10 @@ Phases, each printing one JSON line with its seconds:
      bar on 8 corpus volumes of 112x368x320 made in memory and packed on
      the card (each mask kernel launched once a pack), the launcher's split
      and one epoch at full width, ``cli.infer --metrics`` on the val list;
-     val Dice, epoch seconds and slices/s, no quality gate;
+     val Dice, epoch seconds and slices/s, no quality gate; the six real
+     fastMRI panels of ``tests/goldens`` through the preprocess chain
+     (``tools/real_panels.py``: one launch of each mask kernel), each
+     body mask at Dice >= 0.99 against the committed one;
  11  the 3-D patch path on phase 10's packs: ``train/trainer3d.py``'s CLI
      at the reference width (channels 32-64-128-256-320), ROI 160x160x64,
      batch 2, ``--amp``, with the host sampler and with --device-sampling;
@@ -122,7 +129,9 @@ Phases, each printing one JSON line with its seconds:
      average) and at the defaults, batch 1 and 2, one protocol step traced
      (busy share, top kernels); ``tools/varnet_synthetic.py``'s protocol
      recipe cut to 1 epoch (train loss and val NMSE / SSIM / PSNR by
-     epoch); one f32 SSIM-loss step card vs CPU from that run's weights,
+     epoch); one protocol epoch on 2 samples with ``ckpt_async``, its
+     published snapshot equal to the blocking write of the same state
+     (tensors, host.json bytes); one f32 SSIM-loss step card vs CPU from that run's weights,
      the loss and every gradient against a one-ulp floor (at full width
      when the CPU's two steps stay under 20 s, else 4 cascades); a
      ``--task recon`` daemon on that run's checkpoint answering a 5-D and a
@@ -243,7 +252,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data import recon_data
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.adapters import (
     FastMRISinglecoilAdapter, KneePckAdapter)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.hbm_loader import (
-    SliceStore, gather_batch, read_list)
+    SliceStore, epoch_permutation, gather_batch, read_list)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
     build_preprocess, pack_kspace_volume)
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
@@ -279,7 +288,8 @@ from mri_acl_imagesegmentation_adsp_tpu_torch import graft_entry
 from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
     classify_synthetic, corpus_run, probe_coil_parallel, probe_data_parallel,
-    probe_label_prop, probe_model_parallel, probe_recon, varnet_synthetic)
+    probe_label_prop, probe_model_parallel, probe_recon, real_panels,
+    varnet_synthetic)
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools.probe_train_step import (
     grads_f64)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.augment import (
@@ -293,7 +303,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.recon.varnet import VarNet
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.varnet_trainer import (
     VarNetArgs, VarNetTrainer, build_varnet_from_args, varnet_loss)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.checkpoint import (
-    load_best, save_best)
+    ResumeWriter, load_best, load_train_state, save_best, save_resume_async)
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.engine import Engine
 from mri_acl_imagesegmentation_adsp_tpu_torch.train.losses import (
     LossManager, dice_ce_loss_3d_binary)
@@ -394,6 +404,7 @@ VARNET_TIMING = ("protocol", "defaults")
 VARNET_BATCHES = (1, 2)
 VARNET_WARMUP, VARNET_TIMED = 3, 10
 VARNET_SMOKE_EPOCHS = 1    # of the protocol recipe's 13 (2 until PR 14)
+VARNET_ASYNC_SAMPLES = 2   # the --ckpt-async epoch's train samples
 UNET_RECON_BATCH = 2       # 320x320 slices a recon U-Net step
 CLS_SIZE = 224             # the vendored loaders' crop / resize
 CLS_FWD_BATCH = 2
@@ -2172,53 +2183,156 @@ def _trainer(tmp: str, dev: torch.device, out_dir: str, *extra):
     return launcher.build_trainer(ns.train_list, ns.val_list, ns.out_dir, ns)
 
 
+def _flat_tensors(tree, prefix: str = "") -> dict:
+    """``{path: tensor}`` of a snapshot's nested dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree)
+             if isinstance(tree, list) else ())
+    out = {}
+    for k, v in items:
+        out.update(_flat_tensors(v, f"{prefix}.{k}"))
+    return out
+
+
+def _tensors_differ(got: dict, want: dict) -> list:
+    """Paths whose tensors are not equal (missing ones included)."""
+    keys = set(got) | set(want)
+    return sorted(k for k in keys if k not in got or k not in want
+                  or got[k].dtype != want[k].dtype
+                  or not torch.equal(got[k].cpu(), want[k].cpu()))
+
+
+def snapshots_differ(a: str, b: str) -> dict:
+    """Two run directories' resume snapshots: their names, the tensors
+    that differ and the ``host.json`` files that are not byte-equal."""
+    names = [sorted(os.listdir(os.path.join(d, "checkpoints")))
+             for d in (a, b)]
+    out = {"names": names[0], "names_equal": names[0] == names[1],
+           "tensors_differ": {}, "host_json_differ": []}
+    for name in names[0] if names[0] == names[1] else ():
+        snaps = [os.path.join(d, "checkpoints", name) for d in (a, b)]
+        ta, tb = (_flat_tensors(load_train_state(d)[0]) for d in snaps)
+        if _tensors_differ(ta, tb):
+            out["tensors_differ"][name] = _tensors_differ(ta, tb)
+        host = [open(os.path.join(d, "host.json"), "rb").read()
+                for d in snaps]
+        if host[0] != host[1]:
+            out["host_json_differ"].append(name)
+    out["equal"] = (out["names_equal"] and not out["tensors_differ"]
+                    and not out["host_json_differ"])
+    return out
+
+
+def _cut_run(tmp: str, dev: torch.device, out_dir: str, *extra):
+    """A launcher trainer preempted by ``request_preempt()`` during its
+    first chunk; returns it after its run."""
+    t = _trainer(tmp, dev, out_dir, "--save-resume-steps",
+                 str(RESUME_SAVE_STEPS), *extra)
+    real = t.engine.train_steps
+
+    def preempting(store, perm, gen):
+        out = real(store, perm, gen)
+        t.request_preempt()
+        return out
+    t.engine.train_steps = preempting
+    first = t.run()
+    if not first["summary"].get("preempted") or first["history"]:
+        raise AssertionError(f"the run was not cut in its first epoch: "
+                             f"{first['summary']}")
+    return t
+
+
+def _run_differs(straight: str, resumed: str) -> dict:
+    """A resumed run's history.json and best.ckpt against a straight
+    run's."""
+    hist = [json.load(open(os.path.join(d, "history.json"),
+                           encoding="utf-8")) for d in (straight, resumed)]
+    best = [load_best(os.path.join(d, "best.ckpt"))
+            for d in (straight, resumed)]
+    return {"history": hist[1], "history_equal": hist[0] == hist[1],
+            "best_ckpt_tensors": len(best[0]),
+            "best_ckpt_tensors_differ": _tensors_differ(best[1], best[0])}
+
+
+def async_in_place(t, tmp: str) -> dict:
+    """``save_resume_async`` of a card trainer's state, then at once
+    RESUME_SAVE_STEPS in-place train steps: the published snapshot holds
+    the state before them (the copies ran on the stream before the
+    steps' kernels), and the steps did move it."""
+    perm = epoch_permutation(t.perm_gen, t.train_store.num_slices, 8,
+                             drop_last=True)
+    want = {k: v.detach().cpu().clone()
+            for k, v in _flat_tensors(t._tensor_state()).items()}
+    pending = save_resume_async(os.path.join(tmp, "in_place"), 0,
+                                t._tensor_state(), {"check": "in_place"})
+    t.engine.train_steps(t.train_store, perm[:RESUME_SAVE_STEPS], t.aug_gen)
+    got = _flat_tensors(load_train_state(pending.finalize())[0])
+    after = {k: v.cpu() for k, v in _flat_tensors(
+        t._tensor_state()).items()}
+    out = {"tensors": len(want), "differ": _tensors_differ(got, want),
+           "moved_by_the_steps": len(_tensors_differ(after, want))}
+    if out["differ"] or not out["moved_by_the_steps"]:
+        raise AssertionError(f"the async snapshot is not the state at the "
+                             f"call: {out}")
+    return out
+
+
 def resume_run(tmp: str, dev: torch.device) -> dict:
     """A launcher run preempted by ``request_preempt()`` during its first
     chunk, snapshotting at the chunk's end, then resumed with --resume:
     history.json and best.ckpt bit-equal to a straight run of the same
-    flags without chunks. cuDNN deterministic, its autotuner off."""
+    flags without chunks, launching no mask kernel. The same cut run
+    with --ckpt-async publishes the blocking cut's snapshot names, tensors
+    and host.json bytes, and resumes with --ckpt-async bit-equal to the
+    straight run; an in-place step right after an async save does not
+    reach its snapshot. cuDNN deterministic, its autotuner off."""
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     straight, cut = os.path.join(tmp, "straight"), os.path.join(tmp, "cut")
+    cut_async = os.path.join(tmp, "cut_async")
+    reset_mask_launches()
     try:
         t1 = time.perf_counter()
         if launcher.main(_launch_flags(tmp, dev, straight)) != 0:
             raise AssertionError("the straight launcher run failed")
         straight_s = time.perf_counter() - t1
-        t = _trainer(tmp, dev, cut, "--save-resume-steps",
-                     str(RESUME_SAVE_STEPS))
-        real = t.engine.train_steps
-
-        def preempting(store, perm, gen):
-            out = real(store, perm, gen)
-            t.request_preempt()
-            return out
-        t.engine.train_steps = preempting
-        first = t.run()
-        if not first["summary"].get("preempted") or first["history"]:
-            raise AssertionError(f"the run was not cut in its first epoch: "
-                                 f"{first['summary']}")
+        t = _cut_run(tmp, dev, cut)
         snaps = sorted(os.listdir(os.path.join(cut, "checkpoints")))
+        t1 = time.perf_counter()
+        t_async = _cut_run(tmp, dev, cut_async, "--ckpt-async")
+        cut_async_s = time.perf_counter() - t1
+        at_cut = snapshots_differ(cut_async, cut)
         if launcher.main(_launch_flags(
-                tmp, dev, cut, "--save-resume-steps", str(RESUME_SAVE_STEPS),
-                "--resume")) != 0:
+                tmp, dev, cut, "--save-resume-steps",
+                str(RESUME_SAVE_STEPS), "--resume")) != 0:
             raise AssertionError("the resumed launcher run failed")
+        if launcher.main(_launch_flags(
+                tmp, dev, cut_async, "--save-resume-steps",
+                str(RESUME_SAVE_STEPS), "--ckpt-async", "--resume")) != 0:
+            raise AssertionError("the resumed --ckpt-async run failed")
+        in_place = async_in_place(t_async, tmp)
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
-    hist = [json.load(open(os.path.join(d, "history.json"),
-                           encoding="utf-8")) for d in (straight, cut)]
-    best = [load_best(os.path.join(d, "best.ckpt")) for d in (straight, cut)]
-    differ = [k for k in best[0] if not torch.equal(best[0][k], best[1][k])]
+    blocking, asynchronous = (_run_differs(straight, d)
+                              for d in (cut, cut_async))
     out = {"train_slices": t.train_store.num_slices,
            "steps_per_epoch": t.train_store.num_slices // 8,
-           "snapshots_at_cut": snaps, "history": hist[1],
-           "history_equal": hist[0] == hist[1],
-           "best_ckpt_tensors": len(best[0]),
-           "best_ckpt_tensors_differ": differ, "straight_s": straight_s}
-    if not out["history_equal"] or differ or best[0].keys() != best[1].keys():
+           "snapshots_at_cut": snaps, **blocking,
+           "straight_s": straight_s, "launches": mask_launches(),
+           "async": {"snapshots_at_cut": at_cut, "cut_s": cut_async_s,
+                     "history_equal": asynchronous["history_equal"],
+                     "best_ckpt_tensors_differ": asynchronous[
+                         "best_ckpt_tensors_differ"],
+                     "in_place": in_place}}
+    if (not out["history_equal"] or out["best_ckpt_tensors_differ"]
+            or not asynchronous["history_equal"]
+            or asynchronous["best_ckpt_tensors_differ"]
+            or not at_cut["equal"] or at_cut["names"] != snaps
+            or any(out["launches"].values())):
         raise AssertionError(f"resumed run differs from straight: {out}")
     return out
 
@@ -2307,8 +2421,9 @@ def phase_corpus(dev: torch.device, defaults: dict, tmp: str) -> dict:
     the corpus at full size and width, CORPUS_EPOCHS epoch, without the
     quantized runs: the packs made in memory on the card, one launch of
     each mask kernel a pack, counted from 0 just before; the launcher's
-    split and train; ``cli.infer --metrics`` on the val list. Returns the
-    launches and the run's lists."""
+    split and train; ``cli.infer --metrics`` on the val list. Then the
+    real panels' mask gate (``tools/real_panels.py``), one launch of each
+    kernel. Returns the launches of both and the run's lists."""
     t0 = time.perf_counter()
     _set_precision_flags(defaults)
     reset_mask_launches()
@@ -2327,10 +2442,19 @@ def phase_corpus(dev: torch.device, defaults: dict, tmp: str) -> dict:
     if (missing or len(out["val_dice_by_epoch"]) != CORPUS_EPOCHS
             or not all(np.isfinite(numbers))):
         raise AssertionError(f"the corpus run: missing {missing}, {out}")
+    reset_mask_launches()
+    _, _, panel_dice = real_panels.panel_packs(dev)
+    panel_launches = mask_launches()
+    if (min(panel_dice) < real_panels.MASK_DICE_MIN
+            or set(panel_launches.values()) != {1}):
+        raise AssertionError(f"the real panels: mask Dice {panel_dice}, "
+                             f"launches {panel_launches}")
     emit({"phase": "corpus", "seconds": time.perf_counter() - t0,
-          "launches": launches, **{k: v for k, v in out.items()
-                                   if k not in ("flags", "card")}})
-    return {"launches": launches, "lists": out["lists"]}
+          "launches": launches, "real_panels": {
+              "mask_dice": panel_dice, "launches": panel_launches},
+          **{k: v for k, v in out.items() if k not in ("flags", "card")}})
+    return {"launches": launches, "panel_launches": panel_launches,
+            "lists": out["lists"]}
 
 
 # --------------------------------------------------------------------------
@@ -3176,6 +3300,31 @@ def recon_h5_clis(tmp: str) -> dict:
     return {"h5py": True, "train_varnet_rc": rc}
 
 
+def varnet_async_epoch(dev: torch.device, train: list, val: list,
+                       tmp: str) -> dict:
+    """One VarNet epoch at the protocol configuration on a few samples
+    with ``ckpt_async``: its published snapshot equals, tensor for tensor
+    and host.json byte for byte, the blocking write of the same trainer's
+    state at the same point (a second training run is no reference: the
+    reflection pad's backward adds with atomics on the card)."""
+    t0 = time.perf_counter()
+    dirs = {k: os.path.join(tmp, f"vn_{k}") for k in ("async", "blocking")}
+    args = VarNetArgs(out_dir=dirs["async"], ckpt_async=True, **{
+        **varnet_synthetic.RECIPES["protocol"]["args"], "epochs": 1})
+    tr = VarNetTrainer(args, train, val, device=dev)
+    tr.fit(save_resume_every=1)
+    pending = tr.snapshots.pending
+    tr.snapshots = ResumeWriter(dirs["blocking"])
+    tr._save_resume(tr.epoch)
+    out = {**snapshots_differ(dirs["async"], dirs["blocking"]),
+           "pending_after_fit": pending is not None,
+           "seconds": time.perf_counter() - t0}
+    if (not out["equal"] or out["names"] != ["resume_000001"]
+            or out["pending_after_fit"]):
+        raise AssertionError(f"VarNet async snapshot: {out}")
+    return out
+
+
 def phase_varnet(dev: torch.device, defaults: dict, tmp: str) -> dict:
     """Phase 13 from torch's own precision flags: VarNet and the recon
     U-Net. Returns the mask kernels' launches on these paths (none)."""
@@ -3212,6 +3361,8 @@ def phase_varnet(dev: torch.device, defaults: dict, tmp: str) -> dict:
         "baseline_zero_filled": run["baseline_zero_filled"]}
     ckpt = os.path.join(tmp, "varnet_protocol", "varnet_best.ckpt")
     proto_val = varnet_synthetic.make_samples("protocol", "val")[0]
+    out["async_snapshot"] = varnet_async_epoch(
+        dev, proto[:VARNET_ASYNC_SAMPLES], proto_val[:1], tmp)
     out["step_f32"] = varnet_step_card_vs_cpu(dev, ckpt, proto_val[0])
     out["serve"] = varnet_serving(dev, ckpt, proto_val, b50_model, b50, tmp)
     out["unet_recon"] = unet_recon_full_width(dev, proto[:4], proto_zf[:4],
@@ -3928,6 +4079,7 @@ def main() -> int:
         by_path.update(phase_rest_2d(dev, defaults, tmp))
         corpus = phase_corpus(dev, defaults, tmp)
         by_path["corpus"] = corpus["launches"]
+        by_path["real_panels"] = corpus["panel_launches"]
         by_path["patch3d"] = phase_3d(dev, defaults, tmp, corpus["lists"])
         by_path.update(phase_recon_ingest(dev, defaults, tmp, smi))
         by_path.update(phase_varnet(dev, defaults, tmp))

@@ -20,9 +20,11 @@ raises an ImportError that names it. Packs made in memory
 (``data/packer.py:pack_kspace_volume``, ``tools/make_corpus.py``) train
 with ``--skip-preprocess``. The TPU extension flags are accepted and
 passed on: ``--resume``, ``--save-resume-every``, ``--save-resume-steps``,
-``--resume-keep``, ``--preempt-save``, ``--profile-epochs``, ``--remat``
-and ``--encoder-weights <checkpoint>`` run; the trainer refuses the others
-(``--ckpt-backend orbax``, ``--ckpt-async``).
+``--resume-keep``, ``--preempt-save``, ``--ckpt-async``,
+``--profile-epochs``, ``--remat`` and ``--encoder-weights <checkpoint>``
+run; the trainer refuses ``--ckpt-backend orbax``. ``--ckpt-async`` writes
+the port's own snapshot format in the background; JAX takes it only with
+orbax.
 
 Data parallelism: ``--data-parallel N`` trains on ``N`` ranks that this
 process spawns (``parallel.spawn``), one card each on ``cuda:0`` ..
@@ -283,8 +285,13 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--save-resume-steps", type=int, default=0)
     ext.add_argument("--resume-keep", type=int, default=0)
     ext.add_argument("--ckpt-backend", default="msgpack",
-                     choices=["msgpack", "orbax"])
-    ext.add_argument("--ckpt-async", action="store_true")
+                     choices=["msgpack", "orbax"],
+                     help="msgpack: the port's own snapshots; orbax (a JAX "
+                          "library) is refused")
+    ext.add_argument("--ckpt-async", action="store_true",
+                     help="write each resume snapshot in the background "
+                          "(tensors copied off first; published before the "
+                          "next one and at the end); needs no orbax here")
     ext.add_argument("--preempt-save", action="store_true")
     ext.add_argument("--store-sharded", action="store_true")
     ext.add_argument("--profile-epochs", type=int, default=0)

@@ -15,9 +15,10 @@ writes the run. ``--pipeline-parallel N`` spawns ``N`` ranks of a pipe
 (``VarNetTrainer(pipe_mesh=)``: the cascades as GPipe stages,
 ``parallel/pipeline.py``); ``--num-cascades`` must tile ``N``, and it
 excludes ``--data-parallel`` / ``--coil-parallel``, as in JAX. Asking for
-more ranks than cards raises as JAX's ``make_recon_mesh`` does. Refused, as
-the trainer refuses them: ``--ckpt-backend orbax`` and ``--ckpt-async``
-(the port's own snapshots take their place).
+more ranks than cards raises as JAX's ``make_recon_mesh`` does.
+``--ckpt-async`` writes each snapshot of the port's own format in the
+background (JAX takes it only with orbax). Refused, as the trainer refuses
+it: ``--ckpt-backend orbax`` (the port's own snapshots take its place).
 
   python -m mri_acl_imagesegmentation_adsp_tpu_torch.cli.train_varnet \\
       --data-path /data/prostate_dwi --bvalue b50 --out-dir runs/varnet_b50
@@ -72,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-keep", type=int, default=0,
                    help="keep only the newest N resume snapshots (0 = all)")
     p.add_argument("--ckpt-async", action="store_true",
-                   help="not ported (orbax's); refused")
+                   help="write each resume snapshot in the background "
+                        "(the port's own format; no orbax needed)")
     p.add_argument("--preempt-save", action="store_true",
                    help="SIGTERM/SIGUSR1 -> resume snapshot at the next "
                         "epoch boundary, clean stop; rerun with --resume")

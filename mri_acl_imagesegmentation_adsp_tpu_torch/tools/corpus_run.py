@@ -4,14 +4,19 @@
         --bar b8 --work /data/corpus [--volumes 125] \\
         [--out corpus_b8.json] [--device cuda]
 
-1. ``tools/make_corpus.py`` packs the corpus into ``<work>/packs``
-   (resumable: a second bar reuses the packs);
+1. ``tools/make_corpus.py`` packs the bar's corpus into ``<work>/packs``
+   (resumable: a second bar of the same corpus reuses the packs);
 2. the launcher splits it (its seeded 80/20 split) and trains at one of the
-   JAX corpus runs' settings (``BARS``): ``b8`` is
+   JAX runs' settings (``BARS``): ``b8`` is
    ``runs/corpus_scale_b8/args.json`` (unet, resnet34, dice_bce, aug
    light, amp, bf16 store, batch 8, lr 1e-3, 2 epochs), ``b128`` the
    ``tuned-v5e`` preset of ``runs/corpus_scale/`` (batch 128, lr 4e-3, 4
-   epochs); the train steps of each epoch are timed with the card
+   epochs, an async snapshot every 30 steps, 2 kept), both on 125
+   volumes of 112 368x320 slices; ``synthetic16`` is
+   ``runs/fastmri_unet_synthetic/`` (its README's command: f32 store,
+   batch 8, lr 1e-3, 15 epochs) on 16 volumes of 36 640x368 slices, a
+   corpus like the JAX run's, not the same one (its volume seeds were not
+   recorded); the train steps of each epoch are timed with the card
    synchronized after them;
 3. ``cli.infer --metrics`` on the val list (Dice, IoU, HD95, ASSD);
 4. ``cli.quantize`` of the best checkpoint, then ``cli.infer --qtree``
@@ -41,13 +46,21 @@ import torch
 from ..cli import infer, launcher, quantize
 from .make_corpus import make_corpus
 
-# the JAX corpus runs' launcher settings and best val Dice (TPU runs,
-# runs/corpus_scale_b8/ and runs/corpus_scale/)
+# the JAX runs' launcher settings, corpus and best val Dice (TPU runs,
+# runs/corpus_scale_b8/, runs/corpus_scale/, runs/fastmri_unet_synthetic/)
+CORPUS = {"volumes": 125, "slices": 112, "height": 368, "width": 320}
 BARS = {
     "b8": {"flags": ["--epochs", "2", "--batch-size", "8", "--lr", "1e-3"],
-           "jax_val_dice": 0.9933529496192932},
-    "b128": {"flags": ["--preset", "tuned-v5e", "--epochs", "4"],
-             "jax_val_dice": 0.9935413599014282},
+           "jax_val_dice": 0.9933529496192932, "corpus": CORPUS},
+    "b128": {"flags": ["--preset", "tuned-v5e", "--epochs", "4",
+                       "--save-resume-steps", "30", "--resume-keep", "2",
+                       "--ckpt-async"],
+             "jax_val_dice": 0.9935413599014282, "corpus": CORPUS},
+    "synthetic16": {"flags": ["--epochs", "15", "--batch-size", "8",
+                              "--lr", "1e-3", "--store-dtype", "float32"],
+                    "jax_val_dice": 0.9942474365234375,
+                    "corpus": {"volumes": 16, "slices": 36, "height": 640,
+                               "width": 368}},
 }
 COMMON_FLAGS = ["--model", "unet", "--encoder", "resnet34",
                 "--encoder-weights", "none", "--loss", "dice_bce",
@@ -67,6 +80,16 @@ def card_line() -> str:
         return "not measured"
 
 
+def print_line(obj: Dict, out: str | None = None) -> None:
+    """Print ``obj`` as one JSON line and, given ``out``, write it there."""
+    line = json.dumps(obj)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w", encoding="utf-8") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+
+
 def _infer_means(flags: List[str]) -> Dict[str, float]:
     out_dir = flags[flags.index("--out-dir") + 1]
     if infer.main(flags) != 0:
@@ -80,14 +103,19 @@ def _infer_means(flags: List[str]) -> Dict[str, float]:
     return {**means, "volumes": len(summary)}
 
 
-def run(bar: str, work: str, volumes: int = 125, device: str = "cuda",
-        slices: int = 112, epochs: int | None = None,
-        quantized: bool = True) -> Dict:
-    """Steps 1-4 for ``bar``; returns the JSON line's object. ``epochs``
-    overrides the bar's; without ``quantized`` step 4 is left out."""
+def run(bar: str, work: str, volumes: int | None = None,
+        device: str = "cuda", slices: int | None = None,
+        epochs: int | None = None, quantized: bool = True) -> Dict:
+    """Steps 1-4 for ``bar``; returns the JSON line's object. ``volumes``,
+    ``slices`` and ``epochs`` override the bar's; without ``quantized``
+    step 4 is left out."""
     dev = torch.device(device)
+    shape = BARS[bar]["corpus"]
+    volumes = shape["volumes"] if volumes is None else volumes
     packs = os.path.join(work, "packs")
-    corpus = make_corpus(packs, volumes=volumes, slices=slices,
+    corpus = make_corpus(packs, volumes=volumes,
+                         slices=shape["slices"] if slices is None else slices,
+                         height=shape["height"], width=shape["width"],
                          device=dev)
     lists = os.path.join(work, "lists")
     run_dir = os.path.join(work, f"run_{bar}")
@@ -169,18 +197,15 @@ def main(argv=None) -> int:
     ap.add_argument("--bar", choices=sorted(BARS), required=True)
     ap.add_argument("--work", required=True,
                     help="directory for the packs, lists and runs")
-    ap.add_argument("--volumes", type=int, default=125)
-    ap.add_argument("--slices", type=int, default=112)
+    ap.add_argument("--volumes", type=int,
+                    help="default: the bar's (125, synthetic16 16)")
+    ap.add_argument("--slices", type=int,
+                    help="default: the bar's (112, synthetic16 36)")
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--device", default="cuda")
     ns = ap.parse_args(argv)
-    out = run(ns.bar, ns.work, ns.volumes, ns.device, ns.slices)
-    line = json.dumps(out)
-    if ns.out:
-        os.makedirs(os.path.dirname(os.path.abspath(ns.out)), exist_ok=True)
-        with open(ns.out, "w", encoding="utf-8") as f:
-            f.write(line + "\n")
-    print(line, flush=True)
+    print_line(run(ns.bar, ns.work, ns.volumes, ns.device, ns.slices),
+               ns.out)
     return 0
 
 

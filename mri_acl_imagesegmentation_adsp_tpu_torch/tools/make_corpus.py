@@ -33,13 +33,23 @@ from typing import Dict
 
 from ..data.packer import pack_kspace_volume
 from ..data.preprocess import MRIKneePreprocessor
+from ..ops.kernels import components, morphology
 from ..utils.device import resolve_device
 from ..utils.synthetic import synthetic_knee_volume
 
 
-def corpus_preprocessor(device, out_size=(320, 320)) -> MRIKneePreprocessor:
-    """The launcher's preprocess defaults (``cli/launcher.py``)."""
-    return MRIKneePreprocessor(out_size=out_size, slice_keep=(0.3, 0.7),
+def mask_launches() -> Dict[str, int]:
+    """The body mask kernels' launches so far in this process (each
+    wrapper counts where it launches its kernel: none on the CPU)."""
+    return {"open_close": morphology.LAUNCHES,
+            "label_components": components.LAUNCHES["label_components"]}
+
+
+def corpus_preprocessor(device, out_size=(320, 320),
+                        slice_keep=(0.3, 0.7)) -> MRIKneePreprocessor:
+    """The launcher's preprocess defaults (``cli/launcher.py``); a 3-D
+    corpus keeps every slice (``slice_keep=(0.0, 1.0)``)."""
+    return MRIKneePreprocessor(out_size=out_size, slice_keep=slice_keep,
                                clip_percentiles=(1.0, 99.5), device=device)
 
 
@@ -60,10 +70,12 @@ def _complete(d: str) -> bool:
 
 def make_corpus(out: str, volumes: int = 125, slices: int = 112,
                 height: int = 368, width: int = 320, seed: int = 2024,
-                device="cuda") -> Dict:
-    """Pack ``volumes`` volumes into ``out``; returns how many were made
-    and skipped, the slices per new pack and the seconds taken."""
-    pre = corpus_preprocessor(resolve_device(device))
+                device="cuda", slice_keep=(0.3, 0.7)) -> Dict:
+    """Pack ``volumes`` volumes into ``out``, each the slices of its band
+    ``slice_keep``; returns how many were made and skipped, the slices per
+    new pack, the seconds taken and the mask kernels' launches."""
+    pre = corpus_preprocessor(resolve_device(device), slice_keep=slice_keep)
+    before = mask_launches()
     os.makedirs(out, exist_ok=True)
     t0 = time.perf_counter()
     made, skipped, slices_out = 0, 0, []
@@ -88,7 +100,8 @@ def make_corpus(out: str, volumes: int = 125, slices: int = 112,
           f"{volumes} volumes of {slices} slices at {height}x{width} "
           f"({secs:.1f}s)")
     return {"made": made, "skipped": skipped, "slices_per_pack": slices_out,
-            "seconds": secs}
+            "seconds": secs, "mask_kernel_launches": {
+                k: v - before[k] for k, v in mask_launches().items()}}
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,18 @@ epochs done, then steps done in the next), holding ``state.pt`` (a
 renamed, so a crash mid-write leaves no snapshot that
 :func:`latest_resume_dir` would pick. Every load reads tensors only
 (``weights_only=True``).
+
+The non-blocking snapshot (JAX :131-225, ``--ckpt-async``):
+:func:`save_resume_async` copies every tensor into host memory that the
+caller no longer touches before it returns, writes ``host.json`` into
+``<dir>.tmp`` and leaves ``state.pt`` to one background thread; the
+:class:`PendingSnapshot` it returns publishes the directory at
+``finalize()``. JAX's orbax copies its immutable arrays to the host before
+it returns; here the optimizer and BatchNorm update their tensors in
+place, so a card's tensors are copied on its current stream, which orders
+the copies before the next step's kernels, and the writer waits on an
+event recorded after them. :class:`ResumeWriter` is the trainers' one
+snapshot path, blocking or not.
 """
 
 from __future__ import annotations
@@ -22,10 +34,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import barrier
 
 # prune_resume_dirs spares *.tmp dirs younger than this: they may be a
 # concurrent writer's snapshot in flight
@@ -61,21 +77,128 @@ def _cpu(tree: Any) -> Any:
     return tree
 
 
+def _host_copy(tree: Any, devices: set) -> Any:
+    """A copy of the tensors of a nested dict / list in host memory of its
+    own: a card's tensor into pinned memory on the card's current stream
+    (its device goes into ``devices``, for an event after the copies),
+    any other by a synchronous copy."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        if not t.is_cuda:
+            return t.to("cpu", copy=True)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        devices.add(t.device)
+        return out
+    if isinstance(tree, dict):
+        return {k: _host_copy(v, devices) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_copy(v, devices) for v in tree]
+    return tree
+
+
+def _start_tmp(dirpath: str, host_state: Dict[str, Any]) -> str:
+    """A fresh ``<dirpath>.tmp`` holding ``host.json``; returns it."""
+    tmp = dirpath + ".tmp"
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, "host.json"), "w", encoding="utf-8") as f:
+        json.dump(host_state, f, indent=2)
+    return tmp
+
+
+def _publish(tmp: str, dirpath: str) -> None:
+    if os.path.isdir(dirpath):
+        shutil.rmtree(dirpath)
+    os.replace(tmp, dirpath)
+
+
 def save_train_state(dirpath: str, tensors: Dict[str, Any],
                      host_state: Dict[str, Any]) -> None:
     """A snapshot: ``tensors`` (nested dicts / lists of tensors and
     numbers) in ``state.pt``, ``host_state`` in ``host.json``, written
     into ``<dirpath>.tmp`` and then renamed to ``dirpath``."""
-    tmp = dirpath + ".tmp"
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    tmp = _start_tmp(dirpath, host_state)
     torch.save(_cpu(tensors), os.path.join(tmp, "state.pt"))
-    with open(os.path.join(tmp, "host.json"), "w", encoding="utf-8") as f:
-        json.dump(host_state, f, indent=2)
-    if os.path.isdir(dirpath):
-        shutil.rmtree(dirpath)
-    os.replace(tmp, dirpath)
+    _publish(tmp, dirpath)
+
+
+class PendingSnapshot:
+    """A snapshot whose ``state.pt`` is being written in the background.
+    Until :meth:`finalize` it is ``<dir>.tmp``, which
+    :func:`latest_resume_dir` skips, so a crash before it falls back to
+    the previous snapshot as a crash inside a blocking save does."""
+
+    def __init__(self, dirpath: str, thread: Optional[threading.Thread],
+                 errors: List[BaseException], out_dir: Optional[str],
+                 keep: int, group=None):
+        self._dirpath = dirpath
+        self._thread = thread
+        self._errors = errors
+        self._out_dir = out_dir
+        self._keep = keep
+        self._group = group
+        self._done = False
+
+    def finalize(self) -> str:
+        """Wait for the write, raise its error (the ``.tmp`` removed,
+        nothing published) or rename ``<dir>.tmp`` to ``<dir>`` and prune
+        to ``keep``; then the group's barrier. A second call does
+        nothing. Returns the directory."""
+        if self._done:
+            return self._dirpath
+        self._done = True
+        try:
+            if self._thread is not None:
+                self._thread.join()
+                tmp = self._dirpath + ".tmp"
+                if self._errors:
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    raise self._errors[0]
+                _publish(tmp, self._dirpath)
+                if self._keep > 0 and self._out_dir:
+                    prune_resume_dirs(self._out_dir, self._keep)
+        finally:
+            barrier(self._group)
+        return self._dirpath
+
+
+def _write_state(events: list, tensors: Any, path: str,
+                 errors: List[BaseException]) -> None:
+    """The writer thread: once the copies have run, ``state.pt``."""
+    try:
+        for event in events:
+            event.synchronize()
+        torch.save(tensors, path)
+    except Exception as exc:          # raised again by finalize()
+        errors.append(exc)
+
+
+def save_train_state_async(dirpath: str, tensors: Dict[str, Any],
+                           host_state: Dict[str, Any],
+                           out_dir: Optional[str] = None, keep: int = 0,
+                           group=None) -> PendingSnapshot:
+    """:func:`save_train_state` without waiting for ``state.pt``: the
+    tensors are copied off before it returns, so the caller may update
+    them in place at once. ``finalize()`` of the returned handle
+    publishes the directory, then prunes ``out_dir`` to ``keep``. Under a
+    data-parallel ``group`` only its primary rank writes, and every
+    rank's ``finalize()`` ends with the group's barrier."""
+    thread, errors = None, []
+    if group is None or group.primary:
+        tmp = _start_tmp(dirpath, host_state)
+        devices: set = set()
+        host = _host_copy(tensors, devices)
+        events = []
+        for dev in devices:
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(dev))
+        thread = threading.Thread(
+            target=_write_state, name="resume-snapshot",
+            args=(events, host, os.path.join(tmp, "state.pt"), errors))
+        thread.start()
+    return PendingSnapshot(dirpath, thread, errors, out_dir, keep, group)
 
 
 def _resume_name(epoch: int, step: Optional[int]) -> str:
@@ -105,6 +228,67 @@ def save_resume(out_dir: str, epoch: int, tensors: Dict[str, Any],
     if keep > 0:
         prune_resume_dirs(out_dir, keep)
     return d
+
+
+def save_resume_async(out_dir: str, epoch: int, tensors: Dict[str, Any],
+                      host_state: Dict[str, Any], step: Optional[int] = None,
+                      keep: int = 0, group=None) -> PendingSnapshot:
+    """:func:`save_resume` through :func:`save_train_state_async`: the
+    same directory, published and pruned at ``finalize()``."""
+    d = os.path.join(out_dir, "checkpoints", _resume_name(epoch, step))
+    return save_train_state_async(d, tensors, host_state, out_dir=out_dir,
+                                  keep=keep, group=group)
+
+
+class ResumeWriter:
+    """A trainer's resume snapshots: blocking (the primary rank writes,
+    then the group's barrier), or with ``asynchronous`` one snapshot in
+    flight at a time, the pending one finalized before the next starts and
+    by :meth:`publishing` when the run ends or raises."""
+
+    def __init__(self, out_dir: str, keep: int = 0,
+                 asynchronous: bool = False, group=None):
+        self.out_dir = out_dir
+        self.keep = keep
+        self.asynchronous = asynchronous
+        self.group = group
+        self.pending: Optional[PendingSnapshot] = None
+
+    def save(self, epoch: int, tensors: Dict[str, Any],
+             host_state: Dict[str, Any], step: Optional[int] = None
+             ) -> None:
+        if self.asynchronous:
+            self.finalize()
+            self.pending = save_resume_async(
+                self.out_dir, epoch, tensors, host_state, step=step,
+                keep=self.keep, group=self.group)
+            return
+        if self.group is None or self.group.primary:
+            save_resume(self.out_dir, epoch, tensors, host_state, step=step,
+                        keep=self.keep)
+        barrier(self.group)
+
+    def finalize(self) -> None:
+        """Publish the snapshot in flight, if any."""
+        pending, self.pending = self.pending, None
+        if pending is not None:
+            pending.finalize()
+
+    @contextmanager
+    def publishing(self, name: str):
+        """Finalize after the block; when the block raises, the pending
+        snapshot is still published, and a failure to publish it is
+        printed and never masks the block's exception."""
+        try:
+            yield
+        except BaseException:
+            try:
+                self.finalize()
+            except Exception as exc:
+                print(f"[{name}] finalize of the pending snapshot failed "
+                      f"during crash handling: {exc!r}", flush=True)
+            raise
+        self.finalize()
 
 
 def prune_resume_dirs(out_dir: str, keep: int) -> None:

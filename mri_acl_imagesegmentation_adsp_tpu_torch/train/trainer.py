@@ -25,7 +25,12 @@ Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/trainer.py``:
   ``resume_keep``; ``resume`` continues from the newest one bit for bit
   (``train/checkpoint.py``); ``preempt_save`` turns SIGTERM / SIGUSR1, and
   ``request_preempt()`` always, into a snapshot at the next chunk or epoch
-  end and a clean stop;
+  end and a clean stop; ``ckpt_async`` (JAX :276-324, :470-485) copies
+  each snapshot's tensors off and writes it in the background, publishing
+  it before the next one starts, at the end of the run and, when the run
+  raises, before the exception goes on. JAX takes ``ckpt_async`` only
+  with the orbax backend (its msgpack writer blocks); the port takes it
+  with its one format, the one argument rule that differs;
 - ``profile_epochs``: a ``torch.profiler`` trace of the first epochs' steps
   in ``<out_dir>/profile/epoch_NNN.pt.trace.json``;
 - ``remat``: the U-Net's encoder and decoder blocks recomputed in the
@@ -133,9 +138,9 @@ class UNet2DArgs:
 
 
 # extensions the port does not have, with the default that keeps them off:
-# the orbax backend with its async snapshots is a JAX library; "msgpack"
-# names the default snapshot format, which here is the port's own
-_NOT_PORTED = {"ckpt_async": False, "ckpt_backend": "msgpack"}
+# the orbax backend is a JAX library; "msgpack" names the default snapshot
+# format, which here is the port's own
+_NOT_PORTED = {"ckpt_backend": "msgpack"}
 _COUNTS = ("save_resume_every", "save_resume_steps", "resume_keep",
            "profile_epochs")
 
@@ -222,6 +227,8 @@ class UNet2DTrainer:
         self.primary = self.group is None or self.group.primary
         self.out_dir = Path(args.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.snapshots = ckpt_lib.ResumeWriter(
+            str(self.out_dir), args.resume_keep, args.ckpt_async, self.group)
         if self.primary:
             with (self.out_dir / "args.json").open("w",
                                                    encoding="utf-8") as f:
@@ -306,11 +313,7 @@ class UNet2DTrainer:
     def _save_resume(self, epoch: int) -> None:
         """The snapshot after ``epoch`` epochs."""
         self.start_epoch = epoch + 1
-        if self.primary:
-            ckpt_lib.save_resume(str(self.out_dir), epoch,
-                                 self._tensor_state(), self._host_state(),
-                                 keep=self.args.resume_keep)
-        barrier(self.group)
+        self.snapshots.save(epoch, self._tensor_state(), self._host_state())
 
     def _save_mid_resume(self, epoch: int, steps_done: int,
                          perm: torch.Tensor, losses: np.ndarray) -> None:
@@ -324,10 +327,7 @@ class UNet2DTrainer:
         host["mid_epoch"] = {"epoch": int(epoch),
                              "steps_done": int(steps_done),
                              "losses": [float(v) for v in losses]}
-        if self.primary:
-            ckpt_lib.save_resume(str(self.out_dir), epoch - 1, tensors, host,
-                                 step=steps_done, keep=self.args.resume_keep)
-        barrier(self.group)
+        self.snapshots.save(epoch - 1, tensors, host, step=steps_done)
 
     def _try_resume(self) -> None:
         d = ckpt_lib.latest_resume_dir(str(self.out_dir))
@@ -466,7 +466,8 @@ class UNet2DTrainer:
 
     def run(self) -> Dict[str, Any]:
         with _preempt_signals(self.args.preempt_save, self.request_preempt):
-            return self._run()
+            with self.snapshots.publishing("trainer"):
+                return self._run()
 
     def _run(self) -> Dict[str, Any]:
         a = self.args

@@ -17,7 +17,9 @@ Counterpart: ``mri_acl_imagesegmentation_adsp_tpu/train/varnet_trainer.py``
   replaces the earlier one); ``reconstruct`` with its per-volume ``.h5``
   export; the best checkpoint by validation loss in the port's format
   (``varnet_best.ckpt`` + ``.args.json``); resume snapshots,
-  ``try_resume`` and preemption.
+  ``try_resume`` and preemption; ``ckpt_async`` (:362-417): the snapshot's
+  tensors copied off and written in the background, published before the
+  next one, at the end of ``fit`` and when it raises.
 
 The model is built, and its weights drawn from a CPU generator seeded with
 ``args.seed``, at the first sample, whose k-space gives the averages
@@ -50,9 +52,10 @@ rank takes the same step. ``validate`` and ``reconstruct`` run pipelined
 too, and rank 0 writes. ``num_cascades`` must tile the pipe, and ``mesh``
 and ``pipe_mesh`` exclude each other, as in JAX.
 
-Refused, naming what stands in: ``ckpt_backend="orbax"`` and
-``ckpt_async`` (JAX libraries; the port's own snapshots,
-``train/checkpoint.py``, take their place).
+Refused, naming what stands in: ``ckpt_backend="orbax"`` (a JAX library;
+the port's own snapshots, ``train/checkpoint.py``, take its place). JAX
+takes ``ckpt_async`` only with orbax, whose writer does not block; the
+port takes it with its own format, the one argument rule that differs.
 """
 
 from __future__ import annotations
@@ -176,10 +179,6 @@ def check_varnet_args(args: VarNetArgs, mesh=None, pipe_mesh=None) -> None:
         raise ValueError(f"ckpt_backend {args.ckpt_backend!r} is not "
                          "ported: orbax is a JAX library; the port's own "
                          "snapshots (train/checkpoint.py) take its place")
-    if args.ckpt_async:
-        raise ValueError("ckpt_async is not ported: it is orbax's; the "
-                         "port's own snapshots (train/checkpoint.py) are "
-                         "written synchronously")
 
 
 def crop_pair(target: torch.Tensor, out: torch.Tensor, crop: int):
@@ -230,6 +229,8 @@ class VarNetTrainer:
         self.best_val = float("inf")
         self._preempt = False
         self.best_path = os.path.join(args.out_dir, "varnet_best.ckpt")
+        self.snapshots = ckpt_lib.ResumeWriter(
+            args.out_dir, args.resume_keep, args.ckpt_async, self.group)
 
     # ------------------------------------------------------------------
 
@@ -413,10 +414,7 @@ class VarNetTrainer:
         tensors = {"model": self.model.state_dict(),
                    "optimizer": self.optimizer.state_dict()}
         host = {"epoch": int(epoch), "best_val": float(self.best_val)}
-        if self.primary:
-            ckpt_lib.save_resume(self.args.out_dir, epoch, tensors, host,
-                                 keep=self.args.resume_keep)
-        barrier(self.group)
+        self.snapshots.save(epoch, tensors, host)
 
     def try_resume(self) -> bool:
         """Restore the newest snapshot in ``out_dir``; the model must be
@@ -440,7 +438,8 @@ class VarNetTrainer:
     def fit(self, resume: bool = False, save_resume_every: int = 0,
             preempt_save: bool = False) -> Dict[str, Any]:
         with _preempt_signals(preempt_save, self.request_preempt):
-            return self._fit(resume, save_resume_every)
+            with self.snapshots.publishing("varnet"):
+                return self._fit(resume, save_resume_every)
 
     def _fit(self, resume: bool, save_resume_every: int) -> Dict[str, Any]:
         if resume:

@@ -8,6 +8,7 @@ Tolerances: the generator bit-equal; packs: masks bit-equal, the z-scored
 tensor within 1e-5 (the chains are the same functions in two frameworks,
 f32).
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -19,6 +20,7 @@ from mri_acl_imagesegmentation_adsp_tpu.cli import launcher as jlauncher
 from mri_acl_imagesegmentation_adsp_tpu_torch.cli import launcher
 from mri_acl_imagesegmentation_adsp_tpu_torch.tools import (
     corpus_run, make_corpus)
+from mri_acl_imagesegmentation_adsp_tpu_torch.train.trainer import UNet2DArgs
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs, synthetic_knee_volume)
 
@@ -105,24 +107,41 @@ def test_corpus_preprocessor_is_the_launchers():
 
 
 @pytest.mark.parametrize("bar,run", [("b8", "corpus_scale_b8"),
-                                     ("b128", "corpus_scale")])
+                                     ("b128", "corpus_scale"),
+                                     ("synthetic16",
+                                      "fastmri_unet_synthetic")])
 def test_corpus_run_bars_are_the_committed_runs(bar, run):
     """Each bar's launcher flags give the committed JAX run's arguments,
     aside from paths, the JAX-only ``multihost`` and the b128 run's
-    snapshot settings (every 30 steps, 2 kept, async orbax: a JAX library
-    the port refuses), which change no number of the run."""
+    ``ckpt_backend`` (orbax: a JAX library the port refuses; its async
+    snapshots every 30 steps, 2 kept, run in the port's own format); the
+    fields an older ``args.json`` lacks take their defaults."""
     with open(REPO / "runs" / run / "args.json", encoding="utf-8") as f:
         want = json.load(f)
     flags = [*corpus_run.COMMON_FLAGS, *corpus_run.BARS[bar]["flags"]]
     parser = launcher.build_parser()
     ns = launcher.apply_preset(parser, parser.parse_args(flags), flags)
-    fields = {k: getattr(ns, k) for k in launcher._FORWARDED_TRAIN_FIELDS}
-    for key in ("train_list", "val_list", "out_dir", "multihost"):
-        want.pop(key)
-    snapshots = ("save_resume_steps", "resume_keep", "ckpt_async",
-                 "ckpt_backend")
-    assert {k: v for k, v in fields.items() if k not in snapshots} == {
-        k: v for k, v in want.items() if k not in snapshots}
+    fields = {k: getattr(ns, k) for k in launcher._FORWARDED_TRAIN_FIELDS
+              if k != "ckpt_backend"}
+    defaults = dataclasses.asdict(UNet2DArgs())
+    assert fields == {k: want.get(k, defaults[k]) for k in fields}
     with open(REPO / "runs" / run / "summary.json", encoding="utf-8") as f:
         assert json.load(f)["best"]["val_dice"] == \
             corpus_run.BARS[bar]["jax_val_dice"]
+
+
+def test_synthetic16_corpus_gives_the_jax_runs_steps():
+    """The synthetic16 bar's corpus (16 volumes of 36 slices) through the
+    launcher's slice band and split gives the JAX run's steps an epoch
+    (``runs/fastmri_unet_synthetic/history_step.csv``): 13 train volumes
+    of 15 slices, 24 batches of 8."""
+    corpus = corpus_run.BARS["synthetic16"]["corpus"]
+    s0, s1 = make_corpus.corpus_preprocessor("cpu")._keep_band(
+        corpus["slices"])
+    train, val = launcher.split_volumes(
+        [f"vol{i:04d}" for i in range(corpus["volumes"])], 0.8, 2024)
+    with open(REPO / "runs" / "fastmri_unet_synthetic" / "history_step.csv",
+              encoding="utf-8") as f:
+        epochs = [row.split(",")[1] for row in f.read().split()[1:]]
+    assert (len(train), len(val), s1 - s0) == (13, 3, 15)
+    assert len(train) * (s1 - s0) // 8 == epochs.count("1") == 24

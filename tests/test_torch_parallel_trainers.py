@@ -35,6 +35,7 @@ from mri_acl_imagesegmentation_adsp_tpu_torch.data.packer import (
 from mri_acl_imagesegmentation_adsp_tpu_torch.data.preprocess import (
     MRIKneePreprocessor)
 from mri_acl_imagesegmentation_adsp_tpu_torch.parallel import mesh
+from mri_acl_imagesegmentation_adsp_tpu_torch.train import checkpoint
 from mri_acl_imagesegmentation_adsp_tpu_torch.utils.synthetic import (
     synthetic_kspace_pairs)
 
@@ -142,6 +143,30 @@ def test_launcher_data_parallel_writes_the_one_rank_run(tmp_path):
     assert abs(b[0] - a[0]) <= 1e-5 * abs(a[0]), (a, b)
     hist = json.loads((two / "history.json").read_text())
     assert len(hist) == 1 and np.isfinite(hist[0]["val_dice"])
+
+
+def test_launcher_data_parallel_async_snapshots(tmp_path):
+    """``--ckpt-async`` on 2 ranks: rank 0 alone writes, every rank's
+    publish ends with the barrier, and the snapshots are the one-rank
+    async run's names, each complete."""
+    pre = MRIKneePreprocessor(out_size=(32, 32), device="cpu")
+    for i in range(4):
+        pack_kspace_volume(pre, synthetic_kspace_pairs(seed=i, s=10, h=64,
+                                                       w=48),
+                           str(tmp_path / "art" / f"vol{i}"))
+    flags = ("--save-resume-steps", "2", "--save-resume-every", "1",
+             "--resume-keep", "2", "--ckpt-async")
+    assert _launch(tmp_path, tmp_path / "one", *flags) == 0
+    assert _launch(tmp_path, tmp_path / "two", "--skip-split",
+                   "--data-parallel", "2", *flags) == 0
+    names = [sorted(p.name for p in (tmp_path / d / "checkpoints").iterdir())
+             for d in ("one", "two")]
+    assert names[0] == names[1] == ["resume_000000_000002", "resume_000001"]
+    assert checkpoint.latest_resume_dir(str(tmp_path / "two")).endswith(
+        "resume_000001")
+    for name in names[1]:
+        d = tmp_path / "two" / "checkpoints" / name
+        assert (d / "state.pt").is_file() and (d / "host.json").is_file()
 
 
 def test_launcher_refuses_more_ranks_than_cards(tmp_path):

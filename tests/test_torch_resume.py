@@ -250,13 +250,16 @@ def test_snapshots_load_weights_only(tmp_path):
 
 def test_refuses_what_is_not_ported(lists):
     """The orbax snapshots and a negative step count raise naming the
-    flag; ``store_sharded`` runs: without a group (one rank) the stores
-    are whole, as JAX places them without a mesh."""
-    for kw in ({"ckpt_backend": "orbax"}, {"ckpt_async": True},
-               {"save_resume_steps": -1}):
+    flag; ``ckpt_async`` is accepted (without orbax, unlike JAX) and its
+    trainer writes in the background; ``store_sharded`` runs: without a
+    group (one rank) the stores are whole, as JAX places them without a
+    mesh."""
+    for kw in ({"ckpt_backend": "orbax"}, {"save_resume_steps": -1}):
         flag = "--" + next(iter(kw)).replace("_", "-")
         with pytest.raises(ValueError, match=flag):
             UNet2DTrainer(_args(lists, "refused", **kw), device="cpu")
+    t = UNet2DTrainer(_args(lists, "async", ckpt_async=True), device="cpu")
+    assert t.snapshots.asynchronous and t.snapshots.pending is None
     t = UNet2DTrainer(_args(lists, "sharded", store_sharded=True),
                       device="cpu")
     assert t.group is None and not t.train_store.sharded

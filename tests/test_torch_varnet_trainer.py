@@ -302,13 +302,25 @@ def test_resume_and_preemption_bit_equal(tmp_path):
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": object()}, "ReconGrid"),
     ({"pipe_mesh": object()}, "DataGroup"),
-    ({"ckpt_backend": "orbax"}, "orbax"), ({"ckpt_async": True}, "orbax")])
+    ({"ckpt_backend": "orbax"}, "orbax"),
+    pytest.param({"ckpt_async": True}, None, id="kw3-orbax")])
 def test_varnet_trainer_refusals(kw, match, tmp_path):
     """A ``mesh`` must be a ``ReconGrid`` and a ``pipe_mesh`` a
     ``DataGroup`` (the grid runs: ``tests/test_torch_varnet_shard.py``;
-    the pipe: ``tests/test_torch_pipeline.py``); the orbax options are
-    refused."""
+    the pipe: ``tests/test_torch_pipeline.py``); the orbax backend is
+    refused. ``ckpt_async``, which JAX takes only with orbax, is accepted
+    with the port's own format and runs: an epoch publishes its snapshot
+    (the id of the case is the one it had as a refusal)."""
     args = {k: v for k, v in kw.items() if k.startswith("ckpt")}
+    if match is None:
+        tr = tvt.VarNetTrainer(tvt.VarNetArgs(
+            out_dir=str(tmp_path), **{**NARROW, "epochs": 1}, **args),
+            _samples(3, 7), _samples(2, 8), device="cpu")
+        tr.fit(save_resume_every=1)
+        assert tr.snapshots.pending is None
+        assert checkpoint.latest_resume_dir(str(tmp_path)).endswith(
+            "resume_000001")
+        return
     meshes = {k: v for k, v in kw.items() if k.endswith("mesh")}
     with pytest.raises(TypeError if meshes else ValueError, match=match):
         tvt.VarNetTrainer(tvt.VarNetArgs(out_dir=str(tmp_path), **args),
@@ -505,7 +517,23 @@ def test_cli_train_varnet_refusals(flag, tmp_path, capsys):
     """``--data-parallel`` / ``--coil-parallel`` / ``--pipeline-parallel``
     are taken now: they ask for their cards (none here; the grid runs on
     CPU ranks in ``tests/test_torch_varnet_shard.py``, the pipe in
-    ``tests/test_torch_pipeline.py``); the orbax options are refused."""
+    ``tests/test_torch_pipeline.py``); ``--ckpt-backend orbax`` is
+    refused; ``--ckpt-async``, refused until the port wrote snapshots in
+    the background, is taken and runs an epoch on the fixture."""
+    if flag == ["--ckpt-async"]:
+        pytest.importorskip("h5py")
+        root = tmp_path / "dwi"
+        for split in ("train", "val"):
+            (root / split).mkdir(parents=True)
+            write_dwi_h5(str(root / split / "case0.h5"), 1, slices=2)
+        assert train_varnet.main([
+            "--data-path", str(root), "--out-dir", str(tmp_path / "run"),
+            "--epochs", "1", "--num-cascades", "1", "--chans", "4",
+            "--pools", "2", "--sens-chans", "4", "--sens-pools", "2",
+            "--no-amp", "--device", "cpu", *flag]) == 0
+        assert checkpoint.latest_resume_dir(str(tmp_path / "run")).endswith(
+            "resume_000001")
+        return
     if flag[0] in ("--data-parallel", "--coil-parallel",
                    "--pipeline-parallel"):
         if not torch.cuda.is_available():
